@@ -1,0 +1,137 @@
+"""Resource accounting — the paper's C1 (compute, eq. 1) and C2
+(communication, eq. 2) meters.
+
+A copy of the reference's ``core/accounting.py`` (numpy only), cut to
+what the LeNet trainer bills; the transformer FLOP models arrive with
+the LM slice.
+
+Bandwidth counts actual payload bytes crossing the client<->server
+boundary (activations + labels up, gradients down when applicable).
+Sparse payloads (activation-sparsified AdaSplit, Table 6) are counted as
+nnz * (value + index) bytes.  Compute uses analytic FLOP models
+(matmul-dominated): forward = 2*W*n, backward = 2x forward.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+
+
+def array_bytes(shape, dtype_bytes=4, nnz_fraction: Optional[float] = None
+                ) -> int:
+    n = int(np.prod(shape))
+    if nnz_fraction is None:
+        return n * dtype_bytes
+    nnz = int(n * nnz_fraction)
+    return nnz * (dtype_bytes + 4)  # value + int32 index
+
+
+def split_payload_bytes(acts_shape, batch, *,
+                        nnz_fraction: Optional[float] = None,
+                        grad_down: bool = False,
+                        dtype_bytes: int = 4) -> int:
+    """Bytes crossing the split for one selected client in one global
+    iteration: activations (sparse when ``nnz_fraction`` is given — the
+    billed client's own sparsity) + int32 labels up, activation
+    gradients down when the server-grad-to-client ablation is on."""
+    up = array_bytes(acts_shape, dtype_bytes, nnz_fraction) \
+        + array_bytes((batch,), 4)
+    down = array_bytes(acts_shape, dtype_bytes) if grad_down else 0
+    return up + down
+
+
+def batch_payload_bytes(acts_shape, batch, *, count: Optional[int] = None,
+                        nnz_fracs=None, grad_down: bool = False,
+                        dtype_bytes: int = 4) -> int:
+    """Total split-payload bytes over many selection events: exactly the
+    sum of :func:`split_payload_bytes` over ``nnz_fracs`` (or ``count``
+    dense events), with no Python loop."""
+    n = int(np.prod(acts_shape))
+    per_dense = batch * 4 + (n * dtype_bytes if grad_down else 0)
+    if nnz_fracs is None:
+        assert count is not None
+        return count * (n * dtype_bytes + per_dense)
+    fr = np.asarray(nnz_fracs, np.float64).ravel()
+    nnz = (n * fr).astype(np.int64)          # trunc == int(n * f), f >= 0
+    return int(np.sum(nnz) * (dtype_bytes + 4) + fr.size * per_dense)
+
+
+def lenet_flops_per_example(cfg: ModelConfig, part: str = "full") -> float:
+    """Forward FLOPs for one example through the conv blocks + FC."""
+    from repro_torch.models.lenet import split_index
+    s = split_index(cfg)
+    hw = cfg.image_size
+    cin = 3
+    fl_client = fl_server = 0.0
+    for i, c in enumerate(cfg.conv_channels):
+        f = 2 * hw * hw * 25 * cin * c  # 5x5 conv
+        if i < s:
+            fl_client += f
+        else:
+            fl_server += f
+        cin = c
+        hw //= 2
+    flat = max(hw, 1) ** 2 * cfg.conv_channels[-1]
+    fl_server += 2 * (flat * 120 + 120 * cfg.d_model
+                      + cfg.d_model * cfg.n_classes)
+    return {"client": fl_client, "server": fl_server,
+            "full": fl_client + fl_server}[part]
+
+
+@dataclass
+class Meter:
+    bandwidth_bytes: float = 0.0
+    client_flops: float = 0.0
+    server_flops: float = 0.0
+    # cross-device collective traffic (0 on one device)
+    interconnect_bytes: float = 0.0
+    # host<->device staging traffic (round-data uploads)
+    host_device_bytes: float = 0.0
+
+    def add_payload(self, nbytes: float):
+        self.bandwidth_bytes += nbytes
+
+    def add_client_flops(self, f: float):
+        self.client_flops += f
+
+    def add_server_flops(self, f: float):
+        self.server_flops += f
+
+    def add_interconnect(self, nbytes: float):
+        self.interconnect_bytes += nbytes
+
+    def add_host_device(self, nbytes: float):
+        self.host_device_bytes += nbytes
+
+    @property
+    def bandwidth_gb(self) -> float:
+        return self.bandwidth_bytes / 1e9
+
+    @property
+    def client_tflops(self) -> float:
+        return self.client_flops / 1e12
+
+    @property
+    def total_tflops(self) -> float:
+        return (self.client_flops + self.server_flops) / 1e12
+
+    @property
+    def interconnect_gb(self) -> float:
+        return self.interconnect_bytes / 1e9
+
+    @property
+    def host_device_gb(self) -> float:
+        return self.host_device_bytes / 1e9
+
+    def summary(self) -> dict:
+        return {
+            "bandwidth_gb": self.bandwidth_gb,
+            "client_tflops": self.client_tflops,
+            "total_tflops": self.total_tflops,
+            "interconnect_gb": self.interconnect_gb,
+            "host_device_gb": self.host_device_gb,
+        }

@@ -1,0 +1,378 @@
+"""The AdaSplit training protocol (paper §3), classification form, on the
+eager rung — port of ``repro.core.adasplit`` with ``round_scan=False``,
+``global_batch=True``, client state resident on one device.
+
+Each iteration:
+
+1. the client step runs all C clients as ONE stacked forward (the
+   reference's ``vmap``): LeNet client tower -> projection head ->
+   supervised NT-Xent (eq. 5) -> plain Adam.  The loss is the sum of the
+   C per-client losses; clients share no parameters, so each client's
+   rows of the gradient are its own loss's gradient;
+2. in the global phase, UCB selects eta*N clients (eq. 6);
+3. one batched global step over the S selected clients: server CE +
+   lambda*L1(masks), the server updated by fused Adam and each selected
+   client's masks by per-row fused mask-Adam (eq. 7) — both through the
+   ``masked_adam`` kernel on the card;
+4. the UCB state is updated and ``Meter`` bills bandwidth and compute
+   (eq. 1-2).
+
+``evaluate()`` and ``c3()`` (eq. 9) follow the rounds.  Every conv runs
+through the panel-GEMM kernel on the card.  The trainer runs on the
+device it is given (``"cuda"`` by default) and never moves work to the
+CPU on its own.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.core import masks as masks_mod
+from repro_torch.core.accounting import (Meter, lenet_flops_per_example,
+                                         split_payload_bytes)
+from repro_torch.core.c3 import c3_score
+from repro_torch.core.losses import (accuracy, l1_penalty,
+                                     ntxent_supervised, token_nll)
+from repro_torch.core.orchestrator import Orchestrator
+from repro_torch.data.synthetic import batch_iterator
+from repro_torch.kernels.client_conv import client_proj
+from repro_torch.kernels.masked_adam import fused_adam_update
+from repro_torch.models import lenet
+from repro_torch.optim.adam import adam_init, adam_update
+from repro_torch.weights import (from_numpy, to_numpy, tree_leaves,
+                                 tree_map, tree_unflatten)
+
+
+@dataclass
+class AdaSplitHParams:
+    rounds: int = 20
+    kappa: float = 0.6          # local-phase fraction
+    eta: float = 0.6            # selected-client fraction
+    gamma: float = 0.87         # UCB discount
+    lam: float = 1e-5           # mask L1 coefficient
+    tau: float = 0.07           # NT-Xent temperature
+    lr: float = 1e-3
+    batch_size: int = 32
+    proj_dim: int = 64
+    mask_mode: str = "per_unit"     # "per_unit" | "per_scalar"
+    act_l1: float = 0.0             # beta: split-activation sparsification
+    act_threshold: float = 1e-3     # payload nnz threshold
+    fused_epilogue: bool = False    # bias+ReLU in the panel-GEMM epilogue
+    seed: int = 0
+
+
+def _proj_init(gen, in_dim, proj_dim):
+    return {"w1": torch.randn((in_dim, 128), generator=gen)
+            * (1 / math.sqrt(in_dim)),
+            "b1": torch.zeros((128,)),
+            "w2": torch.randn((128, proj_dim), generator=gen)
+            * (1 / math.sqrt(128))}
+
+
+def _proj_apply(p, acts):
+    """Projection head on split activations (..., B, H', W', C')."""
+    h = acts.reshape(tuple(acts.shape[:-3]) + (-1,)).to(torch.float32)
+    return client_proj(p, h)
+
+
+def _stack(trees):
+    return tree_map(lambda *ls: torch.stack(ls), *trees)
+
+
+def _grads(loss, trees):
+    """d loss / d every leaf of ``trees`` (a tuple), as trees."""
+    leaves = [tree_leaves(t) for t in trees]
+    flat = torch.autograd.grad(loss, [l for ls in leaves for l in ls])
+    out, i = [], 0
+    for t, ls in zip(trees, leaves):
+        out.append(tree_unflatten(t, flat[i:i + len(ls)]))
+        i += len(ls)
+    return out
+
+
+def _requires_grad(tree):
+    return tree_map(lambda t: t.detach().requires_grad_(True), tree)
+
+
+class AdaSplitTrainer:
+    # the state trees, under the names ``get_state``/``set_state`` use
+    STATE_KEYS = ("client_params", "proj_params", "server_params", "s_opt",
+                  "c_opt", "masks", "m_opt")
+
+    def __init__(self, cfg, hp: AdaSplitHParams, clients, *,
+                 device="cuda", jitter=None):
+        self.cfg, self.hp, self.clients = cfg, hp, clients
+        self.n = len(clients)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("AdaSplitTrainer(device='cuda') needs a CUDA "
+                               "card; pass device='cpu' to run on the CPU")
+        self.orch = Orchestrator(self.n, hp.eta, hp.gamma, seed=hp.seed,
+                                 device=self.device, jitter=jitter)
+        gen = torch.Generator().manual_seed(hp.seed)
+        dev = lambda tree: tree_map(lambda t: t.to(self.device), tree)
+
+        self._acts_spatial = self._acts_shape()
+        acts_dim = int(np.prod(self._acts_spatial))
+        self.server_params = dev(lenet.init_server_params(cfg, gen))
+        self.s_opt = adam_init(self.server_params)
+        self.client_params = dev(_stack(
+            [lenet.init_client_params(cfg, gen) for _ in range(self.n)]))
+        self.proj_params = dev(_stack(
+            [_proj_init(gen, acts_dim, hp.proj_dim) for _ in range(self.n)]))
+        if hp.mask_mode == "per_scalar":
+            self.masks = masks_mod.init_scalar_masks(self.server_params,
+                                                     self.n)
+        else:
+            self.masks = masks_mod.init_lenet_unit_masks(cfg, self.n,
+                                                         self.device)
+        # per-client Adam states carry a per-client step vector
+        self.c_opt = adam_init({"c": self.client_params,
+                                "p": self.proj_params})
+        self.c_opt["step"] = torch.zeros((self.n,), dtype=torch.int32,
+                                         device=self.device)
+        self.m_opt = adam_init(self.masks)
+        self.m_opt["step"] = torch.zeros((self.n,), dtype=torch.int32,
+                                         device=self.device)
+
+        self.meter = Meter()
+        self._fl_c = lenet_flops_per_example(cfg, "client")
+        self._fl_s = lenet_flops_per_example(cfg, "server")
+        self.history: List[Dict[str, Any]] = []
+        self._rng = np.random.default_rng(hp.seed)
+
+    # ------------------------------------------------------------------
+    def _acts_shape(self):
+        """(H', W', C') of the split activations: VALID pooling floors
+        the spatial size once per client block."""
+        s = lenet.split_index(self.cfg)
+        hw = self.cfg.image_size
+        for _ in range(s):
+            hw //= 2
+        return (hw, hw, self.cfg.conv_channels[s - 1])
+
+    def get_state(self) -> dict:
+        """Numpy copies of the training state and the bandit state."""
+        st = {k: getattr(self, k) for k in self.STATE_KEYS}
+        st["ucb"] = self.orch.state
+        return to_numpy(st)
+
+    def set_state(self, state: dict):
+        """Adopt a numpy state tree (same keys as :meth:`get_state`, e.g.
+        the reference trainer's state carried across through numpy)."""
+        st = from_numpy(state, self.device)
+        for k in self.STATE_KEYS:
+            setattr(self, k, st[k])
+        self.orch.state = st["ucb"]
+
+    # ------------------------------------------------------------------
+    # client step: all C clients, one stacked forward
+    # ------------------------------------------------------------------
+    def _client_step(self, xs, ys):
+        """Update every client's tower + head on its own batch; returns
+        the (C, B, H', W', C') split activations and the (C,) losses."""
+        hp, cfg = self.hp, self.cfg
+        cp_pp = _requires_grad({"c": self.client_params,
+                                "p": self.proj_params})
+        with torch.enable_grad():
+            acts = lenet.client_forward(cfg, cp_pp["c"], xs,
+                                        fused_epilogue=hp.fused_epilogue)
+            q = _proj_apply(cp_pp["p"], acts)
+            loss = ntxent_supervised(q, ys, hp.tau)               # (C,)
+            if hp.act_l1:
+                loss = loss + hp.act_l1 * acts.abs().sum(
+                    dim=tuple(range(1, acts.ndim))) / acts.shape[1]
+            (g,) = _grads(loss.sum(), (cp_pp,))
+        new, self.c_opt = adam_update(
+            {"c": self.client_params, "p": self.proj_params}, g,
+            self.c_opt, lr=hp.lr)
+        self.client_params, self.proj_params = new["c"], new["p"]
+        return acts.detach(), loss.detach()
+
+    # ------------------------------------------------------------------
+    # global step: S selected clients in one batched server step
+    # ------------------------------------------------------------------
+    def sparsify(self, acts_sel):
+        """(possibly thresholded acts, per-client nnz fractions (S,))."""
+        hp = self.hp
+        if not hp.act_l1:
+            return acts_sel, torch.ones((acts_sel.shape[0],),
+                                        device=acts_sel.device)
+        nz = acts_sel.abs() > hp.act_threshold
+        fracs = nz.to(torch.float32).mean(dim=tuple(range(1, acts_sel.ndim)))
+        return torch.where(nz, acts_sel, torch.zeros(
+            (), device=acts_sel.device)), fracs
+
+    @staticmethod
+    def seg_ces(logits, y_flat, S):
+        """Per-client mean CE from (S*B,) flattened logits."""
+        return token_nll(logits, y_flat).reshape(S, -1).mean(dim=1)
+
+    def global_step(self, masks_sel, m_opt_sel, acts_sel, ys_sel):
+        """One server step over the selection; updates the server in
+        place on ``self`` and returns (masks_sel, m_opt_sel, ces, fracs).
+
+        ``per_unit``: one (S*B)-example forward with per-example gates
+        gathered by client id; ``per_scalar``: per-client effective
+        weights, run as a stacked forward over the S clients.  Either
+        way the loss is the sum of per-client losses, so the mask grads
+        are each client's own and the server grad is their sum (mean =
+        /S)."""
+        hp, cfg = self.hp, self.cfg
+        acts_sel, fracs = self.sparsify(acts_sel)
+        S, B = acts_sel.shape[:2]
+        sp = _requires_grad(self.server_params)
+        msel = _requires_grad(masks_sel)
+        with torch.enable_grad():
+            if hp.mask_mode == "per_scalar":
+                eff = masks_mod.apply_scalar_masks(sp, msel)
+                logits, _ = lenet.server_forward(
+                    cfg, eff, acts_sel, fused_epilogue=hp.fused_epilogue)
+                ces = token_nll(logits, ys_sel).mean(dim=-1)       # (S,)
+            else:
+                seg_ids = torch.arange(S, device=acts_sel.device
+                                       ).repeat_interleave(B)
+                gates = tree_map(lambda l: l[seg_ids], msel)
+                acts_flat = acts_sel.reshape((S * B,) + acts_sel.shape[2:])
+                logits, _ = lenet.server_forward(
+                    cfg, sp, acts_flat, gates=gates,
+                    fused_epilogue=hp.fused_epilogue)
+                ces = self.seg_ces(logits, ys_sel.reshape(-1), S)
+            total = ces.sum() + hp.lam * l1_penalty(msel) * S
+            g_sp, g_m = _grads(total, (sp, msel))
+        g_sp = tree_map(lambda t: t / S, g_sp)
+        with torch.no_grad():
+            self.server_params, self.s_opt = fused_adam_update(
+                self.server_params, g_sp, self.s_opt, lr=hp.lr)
+            masks_sel, m_opt_sel = fused_adam_update(
+                masks_sel, g_m, m_opt_sel, lr=hp.lr)
+        return masks_sel, m_opt_sel, ces.detach(), fracs
+
+    def _global_iteration(self, selected, acts, ys):
+        """One batched global-phase iteration; exactly one device->host
+        copy (the per-client CE losses and payload nnz fractions)."""
+        hp = self.hp
+        idx = torch.as_tensor(np.asarray(selected), dtype=torch.int64,
+                              device=self.device)
+        masks_sel = masks_mod.gather_clients(self.masks, idx)
+        mopt_sel = masks_mod.gather_clients(self.m_opt, idx)
+        masks_sel, mopt_sel, ces, fracs = self.global_step(
+            masks_sel, mopt_sel, acts[idx], ys[idx])
+        self.masks = masks_mod.scatter_clients(self.masks, idx, masks_sel)
+        self.m_opt = masks_mod.scatter_clients(self.m_opt, idx, mopt_sel)
+
+        losses, fracs = torch.stack([ces, fracs]).cpu().numpy()  # one sync
+        acts_shape = tuple(acts.shape[1:])
+        for k in range(len(selected)):
+            nnz = float(fracs[k]) if hp.act_l1 else None
+            self.meter.add_payload(split_payload_bytes(
+                acts_shape, hp.batch_size, nnz_fraction=nnz))
+            self.meter.add_server_flops(3 * self._fl_s * hp.batch_size)
+        return [float(l) for l in losses]
+
+    def _staging_bytes(self) -> float:
+        """H2D bytes of one iteration's (C, B) f32 images + int32 labels."""
+        img = 4 * 3 * self.cfg.image_size ** 2
+        return float(self.n * self.hp.batch_size * (img + 4))
+
+    # ------------------------------------------------------------------
+    def _epoch_batches(self, i):
+        return batch_iterator(self.clients[i], self.hp.batch_size, self._rng)
+
+    def train_iteration(self, xs, ys, global_phase: bool):
+        """One protocol iteration on numpy batches (C, B, ...)/(C, B).
+        Returns (selection, its CE losses, the (C,) client losses on the
+        device); selection and CE are None in the local phase."""
+        hp = self.hp
+        xs = torch.from_numpy(xs).to(self.device)
+        ys = torch.from_numpy(ys).to(self.device)
+        acts, closs = self._client_step(xs, ys)
+        # 3x forward FLOPs for fwd+bwd
+        self.meter.add_client_flops(3 * self._fl_c * self.n * hp.batch_size)
+        self.meter.add_host_device(self._staging_bytes())
+        if not global_phase:
+            return None, None, closs
+        selected = self.orch.select()
+        losses = self._global_iteration(selected, acts, ys)
+        self.orch.update(selected, losses)
+        return selected, losses, closs
+
+    def train(self, eval_every: int = 1):
+        """Run ``hp.rounds`` rounds; one history record per round with
+        the meter totals, the mean client loss and the mean server CE
+        of the round, and the accuracy at eval points."""
+        hp = self.hp
+        local_rounds = int(round(hp.kappa * hp.rounds))
+        for r in range(hp.rounds):
+            global_phase = r >= local_rounds
+            self.orch.new_round()
+            iters = [list(self._epoch_batches(i)) for i in range(self.n)]
+            T = min(len(it) for it in iters)
+            closs = torch.zeros((), device=self.device)
+            ces = []
+            for t in range(T):
+                xs = np.stack([iters[i][t][0] for i in range(self.n)])
+                ys = np.stack([iters[i][t][1] for i in range(self.n)])
+                _, losses, cl = self.train_iteration(xs, ys, global_phase)
+                closs = closs + cl.mean()
+                ces += losses or []
+            rec = {"round": r, "phase": "global" if global_phase else "local",
+                   "client_loss": float(closs) / max(T, 1),
+                   "ce": float(np.mean(ces)) if ces else None,
+                   **self.meter.summary()}
+            if (r + 1) % eval_every == 0 or r == hp.rounds - 1:
+                rec["accuracy"] = self.evaluate()
+            self.history.append(rec)
+        return self.history
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _eval_logits(self, client_params, masks, xs):
+        """Logits of every client on its own test inputs, stacked."""
+        hp, cfg = self.hp, self.cfg
+        acts = lenet.client_forward(cfg, client_params, xs,
+                                    fused_epilogue=hp.fused_epilogue)
+        if hp.mask_mode == "per_scalar":
+            eff = masks_mod.apply_scalar_masks(self.server_params, masks)
+            logits, _ = lenet.server_forward(cfg, eff, acts,
+                                             fused_epilogue=hp.fused_epilogue)
+        else:
+            logits, _ = lenet.server_forward(cfg, self.server_params, acts,
+                                             gates=masks,
+                                             fused_epilogue=hp.fused_epilogue)
+        return logits
+
+    def client_accuracies(self) -> np.ndarray:
+        """(C,) per-client test accuracy in [0, 1]."""
+        shapes = {cd.test_x.shape for cd in self.clients}
+        if len(shapes) == 1:
+            xs = torch.from_numpy(np.stack(
+                [cd.test_x for cd in self.clients])).to(self.device)
+            ys = torch.from_numpy(np.stack(
+                [cd.test_y for cd in self.clients])).to(self.device)
+            return accuracy(self._eval_logits(
+                self.client_params, self.masks, xs), ys).cpu().numpy()
+        accs = []
+        for i, cd in enumerate(self.clients):
+            row = torch.tensor([i], device=self.device)
+            xs = torch.from_numpy(cd.test_x[None]).to(self.device)
+            ys = torch.from_numpy(cd.test_y[None]).to(self.device)
+            accs.append(float(accuracy(self._eval_logits(
+                masks_mod.gather_clients(self.client_params, row),
+                masks_mod.gather_clients(self.masks, row), xs), ys)[0]))
+        return np.asarray(accs, np.float32)
+
+    def evaluate(self) -> float:
+        return 100.0 * float(np.mean(self.client_accuracies()))
+
+    def c3(self, bandwidth_budget, compute_budget, temperature=8.0):
+        acc = self.history[-1].get("accuracy") or self.evaluate()
+        return c3_score(acc, self.meter.bandwidth_gb,
+                        self.meter.client_tflops,
+                        bandwidth_budget=bandwidth_budget,
+                        compute_budget=compute_budget,
+                        temperature=temperature)

@@ -1,0 +1,62 @@
+"""Carrying state between the reference package and the port, and the
+fp32 policy both the tests and ``chip_smoke.py`` run under.
+
+State trees on both sides are nested dicts/lists with the same keys, so
+conversion is a tree map through numpy: the reference's parameters,
+optimizer and bandit state come across as numpy arrays (``np.asarray``
+on the JAX side) and go back the same way.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tree_map(fn, tree, *rest):
+    """Map ``fn`` over the leaves of nested dicts/lists/tuples.  Dicts
+    are walked in sorted key order, as JAX walks its pytrees, so leaf
+    order depends on the keys only, never on insertion order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    """Leaves in :func:`tree_map` order."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for t in tree for l in tree_leaves(t)]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure holding ``leaves`` in leaf order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def from_numpy(tree, device):
+    """Numpy (or array-like) leaves -> torch tensors on ``device``,
+    keeping each leaf's dtype (float32 stays float32, int32 int32)."""
+    return tree_map(
+        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device),
+        tree)
+
+
+def to_numpy(tree):
+    """Torch tensor leaves -> numpy arrays on the host."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def strict_fp32():
+    """Full-fp32 matrix products and convolutions on the card: no TF32
+    (which keeps ~3 decimal digits) anywhere, so the port's numbers are
+    comparable with the fp32 reference and with the kernels' own f32
+    FMA accumulation."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
