@@ -8,11 +8,12 @@ Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``); build every CUDA
    kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
-2. kernels: each kernel at the main path's shapes (C=32 clients, B=32,
-   S=19 selected) against its plain PyTorch version on the card, with
-   its time (CUDA events), the plain version's time, one PyTorch
-   library call's time where one computes the same function, and the
-   bound (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s fp32);
+2. kernels: each kernel at the shapes phase 4's runs give it (derived
+   from their hparams: C=32 clients, B=32, S=19 selected) against its
+   plain PyTorch version on the card, with its device time
+   (torch.profiler), the plain version's, that of one PyTorch library
+   call where one computes the same function, and the bound (bytes over
+   3.35 TB/s or FLOPs over 67 TFLOP/s fp32);
 3. one teacher-forced iteration from the same state on the card and on
    the CPU, compared;
 4. ``AdaSplitTrainer`` on ``lenet-cifar`` at full width (C=32, B=32,
@@ -38,6 +39,22 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 GEMM_TOL = 1e-4                 # f32 FMA sums of <=1600 terms, other order
 ADAM_TOL = 1e-6                 # same f32 ops in the same order (-fmad=false)
+# the library's Adam takes sqrt(nu)/sqrt(1-b2^t) and lerps mu: the same
+# function in other f32 ops, one ULP of |p| < 8 apart
+LIBRARY_ADAM_TOL = 1e-6
+N_CLIENTS = 32                  # phase 4's clients; phase 2's shapes follow
+
+
+def trainer_runs():
+    """Phase 4's trainer runs by label: the main run, and a shorter one
+    with the bias+ReLU epilogue and per-scalar masks.  Phase 2 checks
+    every kernel at the shapes these runs give it."""
+    import dataclasses
+    from repro_torch.core.adasplit import AdaSplitHParams
+    main = AdaSplitHParams(rounds=4, kappa=0.5, eta=0.6, batch_size=32)
+    return {"main": main,
+            "fused_epilogue+per_scalar": dataclasses.replace(
+                main, rounds=2, mask_mode="per_scalar", fused_epilogue=True)}
 
 
 def fail(msg: str) -> int:
@@ -45,9 +62,11 @@ def fail(msg: str) -> int:
     return 1
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, iters: int) -> float:
+    """Host-clock ms per call of ``fn`` (CUDA events around ``iters``
+    back-to-back calls after two warm-ups): launch cost included."""
     import torch
-    for _ in range(warmup):
+    for _ in range(2):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -60,33 +79,80 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_events(prof):
+    """(name, device us, count) of the device-side events of a
+    torch.profiler run (kernels, copies, fills): a CPU op's self device
+    time would repeat the time of the kernels it launched."""
+    import torch
+    dev = [(e.key, getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0.0), e.count)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    return [d for d in dev if d[1] > 0]
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn``: the summed duration of the device
+    work that ``iters`` calls issue (torch.profiler), after a warm-up.
+    Gaps between launches are not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(d[1] for d in device_events(prof))
+    if not busy > 0:
+        raise AssertionError("the profiler recorded no device time")
+    return busy / iters / 1e3
+
+
 def bound(nbytes: float, flops: float):
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernels against their plain versions
+# phase 2: kernels against their plain versions, at phase 4's shapes
 # ---------------------------------------------------------------------------
 
 
-def gemm_shapes(C=32, B=32, S=19):
-    """(C, M, K, N) of every 5x5 conv GEMM of one lenet-cifar iteration:
-    the client block over C clients, the server blocks over S*B."""
-    out = [("client_block", C, B * 32 * 32, 75, 6)]
-    cin, hw = 6, 16
-    for i, c in enumerate((16, 32, 64, 64)):
-        out.append((f"server_block{i + 1}", 1, S * B * hw * hw, 25 * cin, c))
-        cin, hw = c, hw // 2
+def gemm_shapes(cfg, hp):
+    """(name, C, M, K, N) of every conv GEMM that one global iteration of
+    the trainer run with ``hp`` launches: the client blocks over all
+    N_CLIENTS clients, then the server blocks over the S selected ones,
+    as one flattened S*B batch (per_unit) or stacked over S
+    (per_scalar)."""
+    import torch
+    from repro_torch.core.orchestrator import n_selected
+    from repro_torch.models import lenet
+    gen = torch.Generator().manual_seed(0)
+    S, B, hw = n_selected(N_CLIENTS, hp.eta), hp.batch_size, cfg.image_size
+    stack, rows = (S, B) if hp.mask_mode == "per_scalar" else (1, S * B)
+    out = []
+    for part, C, R, params in (
+            ("client", N_CLIENTS, B, lenet.init_client_params(cfg, gen)),
+            ("server", stack, rows, lenet.init_server_params(cfg, gen))):
+        for i, bp in enumerate(params["blocks"]):
+            k, _, cin, cout = bp["w"].shape
+            out.append((f"{part}_block{i + 1}", C, R * hw * hw,
+                        k * k * cin, cout))
+            hw //= 2
     return out
 
 
-def check_gemm(fused: bool, gen):
+def check_gemm(cfg, hp, gen):
     import torch
     from repro_torch.kernels import client_conv as cc
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+    fused = hp.fused_epilogue
+    label = "panel_gemm_bias_relu" if fused else "panel_gemm"
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "library_ms": None if fused else 0.0,
            "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0}
-    for name, C, M, K, N in gemm_shapes():
+    for name, C, M, K, N in gemm_shapes(cfg, hp):
         a = torch.randn((C, M, K), device="cuda", generator=gen)
         b = torch.randn((C, K, N), device="cuda", generator=gen) / math.sqrt(K)
         bias = torch.randn((C, N), device="cuda", generator=gen) \
@@ -97,22 +163,23 @@ def check_gemm(fused: bool, gen):
         err = float((got - want).abs().max())
         rel = err / max(float(want.abs().max()), 1e-30)
         if not err <= GEMM_TOL * max(1.0, float(want.abs().max())):
-            raise AssertionError(f"panel_gemm{'_bias_relu' if fused else ''}"
-                                 f" {name}: max abs err {err}")
-        ms = time_ms(lambda: cc.panel_gemm_cuda(a, b, bias), 20)
-        plain_ms = time_ms(lambda: cc.panel_gemm_plain(a, b, bias), 3, 1)
-        lib_ms = time_ms(lambda: torch.bmm(a, b), 20)
+            raise AssertionError(f"{label} {name}: max abs err {err}")
+        ms = device_ms(lambda: cc.panel_gemm_cuda(a, b, bias), 10)
+        plain_ms = device_ms(lambda: cc.panel_gemm_plain(a, b, bias), 3)
+        lib = ""
+        if not fused:
+            lib_ms = device_ms(lambda: torch.bmm(a, b), 10)
+            tot["library_ms"] += lib_ms
+            lib = f" bmm_ms={lib_ms:.4f}"
         nbytes = 4.0 * (C * M * K + C * K * N + C * M * N
                         + (C * N if fused else 0))
         flops = 2.0 * C * M * K * N + (2.0 * C * M * N if fused else 0)
         bms, _ = bound(nbytes, flops)
-        print(f"  {'panel_gemm_bias_relu' if fused else 'panel_gemm'} "
-              f"{name} C={C} M={M} K={K} N={N}: max_abs_err={err:.3e} "
-              f"rel={rel:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bmm_ms={lib_ms:.4f} bound_ms={bms:.4f}")
+        print(f"  {label} {name} C={C} M={M} K={K} N={N}: "
+              f"max_abs_err={err:.3e} rel={rel:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f}{lib} bound_ms={bms:.4f}")
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
-        tot["library_ms"] += lib_ms
         tot["bound_ms"] += bms
         tot["bytes"] += nbytes
         tot["flops"] += flops
@@ -121,66 +188,127 @@ def check_gemm(fused: bool, gen):
     return tot
 
 
-def adam_leaves(S=19):
-    """(shape, rows) of every leaf one per-unit global step updates: the
-    server params (one step) and the S selected clients' unit masks
-    (per-row steps)."""
-    server = [(5, 5, 6, 16), (16,), (5, 5, 16, 32), (32,), (5, 5, 32, 64),
-              (64,), (5, 5, 64, 64), (64,), (64, 120), (120,), (120, 84),
-              (84,), (84, 10), (10,)]
-    masks = [(S, 16), (S, 32), (S, 64), (S, 64), (S, 120), (S, 84)]
-    return [(s, 1) for s in server] + [(s, S) for s in masks]
+def adam_leaves(cfg, hp):
+    """(shape, per_row) of every leaf that one global step of the trainer
+    run with ``hp`` updates (unmasked): the server params, with one step,
+    and the S selected clients' masks, with a step per row -- unit masks
+    (per_unit) or server-shaped ones (per_scalar)."""
+    import torch
+    from repro_torch.core import masks
+    from repro_torch.core.orchestrator import n_selected
+    from repro_torch.models import lenet
+    from repro_torch.weights import tree_leaves
+    S = n_selected(N_CLIENTS, hp.eta)
+    server = lenet.init_server_params(cfg, torch.Generator().manual_seed(0))
+    if hp.mask_mode == "per_scalar":
+        m = masks.init_scalar_masks(server, S)
+    else:
+        m = masks.init_lenet_unit_masks(cfg, S, device="cpu")
+    return [(tuple(l.shape), False) for l in tree_leaves(server)] + \
+        [(tuple(l.shape), True) for l in tree_leaves(m)]
 
 
-def check_adam(gen):
+def library_adam(leaves, kw):
+    """One ``torch._fused_adam_`` call (a multi-tensor launch) over the
+    same leaves, each stacked leaf split into its rows so that every row
+    takes its own step; it updates copies in place.  Returns the call and
+    the copies (p, mu, nu) per leaf."""
+    import torch
+    lists = ([], [], [], [], [])
+    copies = []
+    for p, g, mu, nu, step, _, _ in leaves:
+        cp, cm, cv = p.clone(), mu.clone(), nu.clone()
+        copies.append((cp, cm, cv))
+        rows = (lambda t: list(t.unbind(0))) if step.ndim else \
+            (lambda t: [t])
+        for out, t in zip(lists, (cp, g, cm, cv, step.to(torch.float32))):
+            out.extend(rows(t))
+    ps, gs, ms, vs, steps = lists
+    steps = [s.clone() for s in steps]
+
+    def call():
+        torch._fused_adam_(ps, gs, ms, vs, [], steps, lr=kw["lr"],
+                           beta1=kw["b1"], beta2=kw["b2"], weight_decay=0.0,
+                           eps=kw["eps"], amsgrad=False, maximize=False)
+    return call, copies
+
+
+def check_adam(cfg, hp, gen, label):
+    """The unmasked kernel over one global step's leaves against its
+    plain version and against the library's multi-tensor Adam; then the
+    masked variant on the largest stacked leaf."""
     import torch
     from repro_torch.kernels import masked_adam as ma
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0,
-           "flops": 0.0, "max_abs_err": 0.0}
     kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
-    # the on-path (unmasked) variant over one global step's leaves, then
-    # the masked variant on a per-scalar stacked server leaf
-    cases = [(shape, rows, False) for shape, rows in adam_leaves()]
-    cases.append(((19, 5, 5, 64, 64), 19, True))
-    for shape, rows, masked in cases:
+    leaves, tot = [], {"bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0}
+    for shape, per_row in adam_leaves(cfg, hp):
         p = torch.randn(shape, device="cuda", generator=gen)
         g = torch.randn(shape, device="cuda", generator=gen) * 1e-2
         mu = torch.randn(shape, device="cuda", generator=gen) * 1e-3
         nu = torch.rand(shape, device="cuda", generator=gen) * 1e-4
-        mask = torch.rand(shape, device="cuda", generator=gen) \
-            if masked else None
-        step = torch.randint(1, 50, (rows,), device="cuda", generator=gen,
-                             dtype=torch.int32) if rows > 1 else \
+        step = torch.randint(1, 50, shape[:1], device="cuda", generator=gen,
+                             dtype=torch.int32) if per_row else \
             torch.tensor(7, device="cuda", dtype=torch.int32)
         b1t, b2t = ma.bias_corrections(step, kw["b1"], kw["b2"])
-        got = ma.masked_adam_cuda(p, g, mu, nu, mask, b1t=b1t, b2t=b2t, **kw)
-        want = ma.masked_adam_plain(p, g, mu, nu, mask, b1t=b1t, b2t=b2t,
+        leaves.append((p, g, mu, nu, step, b1t, b2t))
+        got = ma.masked_adam_cuda(p, g, mu, nu, None, b1t=b1t, b2t=b2t, **kw)
+        want = ma.masked_adam_plain(p, g, mu, nu, None, b1t=b1t, b2t=b2t,
                                     **kw)
         torch.cuda.synchronize()
         err = max(float((x - y).abs().max()) for x, y in zip(got, want))
         if not err <= ADAM_TOL:
             raise AssertionError(f"masked_adam {shape}: max abs err {err}")
-        n = p.numel()
-        nbytes = 4.0 * (7 * n + (n if masked else 0) + 2 * b1t.numel())
-        flops = (16.0 if masked else 15.0) * n
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        if masked:
-            ms = time_ms(lambda: ma.masked_adam_cuda(
-                p, g, mu, nu, mask, b1t=b1t, b2t=b2t, **kw), 20)
-            print(f"  masked_adam (masked variant) {shape}: "
-                  f"max_abs_err={err:.3e} ms={ms:.4f} "
-                  f"bound_ms={bound(nbytes, flops)[0]:.4f}")
-            continue
-        tot["ms"] += time_ms(lambda: ma.masked_adam_cuda(
-            p, g, mu, nu, None, b1t=b1t, b2t=b2t, **kw), 20)
-        tot["plain_ms"] += time_ms(lambda: ma.masked_adam_plain(
-            p, g, mu, nu, None, b1t=b1t, b2t=b2t, **kw), 20)
-        tot["bound_ms"] += bound(nbytes, flops)[0]
-        tot["bytes"] += nbytes
-        tot["flops"] += flops
-    print(f"  masked_adam one global step ({len(cases) - 1} leaves): "
-          f"max_abs_err={tot['max_abs_err']:.3e} ms={tot['ms']:.4f} "
-          f"plain_ms={tot['plain_ms']:.4f} bound_ms={tot['bound_ms']:.4f}")
+        tot["bytes"] += 4.0 * (7 * p.numel() + 2 * b1t.numel())
+        tot["flops"] += 15.0 * p.numel()
+
+    def kernel_step():
+        for p, g, mu, nu, _, b1t, b2t in leaves:
+            ma.masked_adam_cuda(p, g, mu, nu, None, b1t=b1t, b2t=b2t, **kw)
+
+    def plain_step():
+        for p, g, mu, nu, _, b1t, b2t in leaves:
+            ma.masked_adam_plain(p, g, mu, nu, None, b1t=b1t, b2t=b2t, **kw)
+
+    call, copies = library_adam(leaves, kw)
+    call()
+    lib_err = 0.0
+    for (p, g, mu, nu, _, b1t, b2t), got in zip(leaves, copies):
+        want = ma.masked_adam_plain(p, g, mu, nu, None, b1t=b1t, b2t=b2t,
+                                    **kw)
+        lib_err = max(lib_err, max(float((x - y).abs().max())
+                                   for x, y in zip(got, want)))
+    if not lib_err <= LIBRARY_ADAM_TOL:
+        raise AssertionError(f"torch._fused_adam_ disagrees: {lib_err}")
+    tot["ms"] = device_ms(kernel_step, 10)
+    tot["plain_ms"] = device_ms(plain_step, 10)
+    tot["library_ms"] = device_ms(call, 10)
+    tot["bound_ms"] = bound(tot["bytes"], tot["flops"])[0]
+    host_ms, lib_host_ms = time_ms(kernel_step, 10), time_ms(call, 10)
+    print(f"  masked_adam [{label}] one global step, {len(leaves)} leaves "
+          f"({len(leaves)} launches): max_abs_err={tot['max_abs_err']:.3e} "
+          f"device ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+          f"fused_adam_ms={tot['library_ms']:.4f} (one call, "
+          f"max_abs_err vs plain {lib_err:.3e}) bound_ms={tot['bound_ms']:.4f}"
+          f"; host clock incl. launches: kernel {host_ms:.4f} ms, "
+          f"fused_adam {lib_host_ms:.4f} ms")
+
+    # the masked variant (tests use it; the path does not)
+    p, g, mu, nu, _, b1t, b2t = max(
+        (lf for lf in leaves if lf[4].ndim), key=lambda lf: lf[0].numel())
+    mask = torch.rand(p.shape, device="cuda", generator=gen)
+    got = ma.masked_adam_cuda(p, g, mu, nu, mask, b1t=b1t, b2t=b2t, **kw)
+    want = ma.masked_adam_plain(p, g, mu, nu, mask, b1t=b1t, b2t=b2t, **kw)
+    torch.cuda.synchronize()
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    if not err <= ADAM_TOL:
+        raise AssertionError(f"masked_adam masked {tuple(p.shape)}: {err}")
+    ms = device_ms(lambda: ma.masked_adam_cuda(
+        p, g, mu, nu, mask, b1t=b1t, b2t=b2t, **kw), 10)
+    n = p.numel()
+    print(f"  masked_adam [{label}] masked variant {tuple(p.shape)}: "
+          f"max_abs_err={err:.3e} device ms={ms:.4f} bound_ms="
+          f"{bound(4.0 * 8 * n + 8 * p.shape[0], 16.0 * n)[0]:.4f}")
     return tot
 
 
@@ -189,19 +317,22 @@ def check_adam(gen):
 # ---------------------------------------------------------------------------
 
 
-def iteration_on_two_devices(cfg):
+def iteration_on_two_devices(cfg, main_hp):
+    """One global iteration of the main run's hparams, with act_l1 on,
+    over 8 clients (the CPU side stays small)."""
+    import dataclasses
     import numpy as np
-    import torch
-    from repro_torch.core.adasplit import AdaSplitHParams, AdaSplitTrainer
+    from repro_torch.core.adasplit import AdaSplitTrainer
     from repro_torch.data.synthetic import mixed_noniid
     from repro_torch.weights import tree_leaves
-    clients = mixed_noniid(8, n_per_client=32, n_test=8, seed=3)
-    hp = AdaSplitHParams(rounds=1, eta=0.6, batch_size=32, act_l1=1e-4)
+    hp = dataclasses.replace(main_hp, rounds=1, act_l1=1e-4)
+    B = hp.batch_size
+    clients = mixed_noniid(8, n_per_client=B, n_test=8, seed=3)
     gpu = AdaSplitTrainer(cfg, hp, clients, device="cuda")
     cpu = AdaSplitTrainer(cfg, hp, clients, device="cpu")
     cpu.set_state(gpu.get_state())
-    xs = np.stack([c.x[:32] for c in clients])
-    ys = np.stack([c.y[:32] for c in clients])
+    xs = np.stack([c.x[:B] for c in clients])
+    ys = np.stack([c.y[:B] for c in clients])
     out = {}
     for name, tr in (("gpu", gpu), ("cpu", cpu)):
         sel, ces, closs = tr.train_iteration(xs, ys, global_phase=True)
@@ -238,6 +369,9 @@ def iteration_on_two_devices(cfg):
 
 
 def run_trainer(cfg, hp, clients, label):
+    """Train, evaluate and bill one run; then one more global iteration,
+    whose launches must be the GEMMs and Adam leaves phase 2 checked,
+    its wall time, and its profile.  Returns the run's launch counts."""
     import numpy as np
     import torch
     from repro_torch.core.adasplit import AdaSplitTrainer
@@ -274,8 +408,13 @@ def run_trainer(cfg, hp, clients, label):
     cc.reset_launches()
     ma.reset_launches()
     tr.train_iteration(xs, ys, global_phase=True)
-    print(f"  [{label}] launches per global iteration: "
-          f"{json.dumps({**cc.LAUNCHES, **ma.LAUNCHES})}")
+    per_it = {**cc.LAUNCHES, **ma.LAUNCHES}
+    print(f"  [{label}] launches per global iteration: {json.dumps(per_it)}")
+    gemm = "panel_gemm_bias_relu" if hp.fused_epilogue else "panel_gemm"
+    if (per_it[gemm], per_it["masked_adam"]) != (
+            len(gemm_shapes(cfg, hp)), len(adam_leaves(cfg, hp))):
+        raise AssertionError(f"[{label}] the path launched other GEMMs or "
+                             "Adam leaves than phase 2 checked")
     n_it = 5
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -289,11 +428,12 @@ def run_trainer(cfg, hp, clients, label):
     return launches
 
 
-def profile_iterations(tr, xs, ys, label, n_it=3):
-    """Device time by kernel over ``n_it`` global iterations, and the
-    device's busy share of the wall time (torch.profiler)."""
+def profile_iterations(tr, xs, ys, label):
+    """Device time by kernel over 3 global iterations, and the device's
+    busy share of the wall time (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    n_it = 3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -302,13 +442,7 @@ def profile_iterations(tr, xs, ys, label, n_it=3):
             tr.train_iteration(xs, ys, global_phase=True)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, copies): a CPU op's self device
-    # time repeats the time of the kernels it launched
-    dev = [(e.key, getattr(e, "self_device_time_total", None)
-            or getattr(e, "self_cuda_time_total", 0.0), e.count)
-           for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
-    dev = [d for d in dev if d[1] > 0]
+    dev = device_events(prof)
     busy = sum(d[1] for d in dev)
     if not dev:
         print(f"  [{label}] profile: no device time recorded (not measured)")
@@ -346,31 +480,31 @@ def main() -> int:
                 print(f"  ptxas[{name}]: {line.strip()}")
 
     # phase 2 ---------------------------------------------------------
-    print("phase 2: kernels against their plain versions")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    gemm = check_gemm(False, gen)
-    fused = check_gemm(True, gen)
-    adam = check_adam(gen)
-
-    # phase 3 ---------------------------------------------------------
     from repro_torch.configs.base import get_config
     cfg = get_config("lenet-cifar")
+    runs = trainer_runs()
+    print("phase 2: kernels against their plain versions, at phase 4's "
+          "shapes")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gemm = check_gemm(cfg, runs["main"], gen)
+    fused = check_gemm(cfg, runs["fused_epilogue+per_scalar"], gen)
+    adam = {label: check_adam(cfg, hp, gen, label)
+            for label, hp in runs.items()}
+
+    # phase 3 ---------------------------------------------------------
     print("phase 3: one iteration on the card and on the CPU")
-    iteration_on_two_devices(cfg)
+    iteration_on_two_devices(cfg, runs["main"])
 
     # phase 4 ---------------------------------------------------------
-    from repro_torch.core.adasplit import AdaSplitHParams
     from repro_torch.data.synthetic import mixed_noniid
-    print("phase 4: AdaSplitTrainer on lenet-cifar, C=32 B=32")
-    clients = mixed_noniid(32, n_per_client=128, n_test=64)
-    main_run = run_trainer(cfg, AdaSplitHParams(
-        rounds=4, kappa=0.5, eta=0.6, batch_size=32), clients, "main")
-    fused_run = run_trainer(cfg, AdaSplitHParams(
-        rounds=2, kappa=0.5, eta=0.6, batch_size=32, mask_mode="per_scalar",
-        fused_epilogue=True), clients, "fused_epilogue+per_scalar")
-    launches = {"panel_gemm": main_run["panel_gemm"],
-                "panel_gemm_bias_relu": fused_run["panel_gemm_bias_relu"],
-                "masked_adam": main_run["masked_adam"]}
+    print(f"phase 4: AdaSplitTrainer on lenet-cifar, C={N_CLIENTS}")
+    clients = mixed_noniid(N_CLIENTS, n_per_client=128, n_test=64)
+    counts = {label: run_trainer(cfg, hp, clients, label)
+              for label, hp in runs.items()}
+    launches = {"panel_gemm": counts["main"]["panel_gemm"],
+                "panel_gemm_bias_relu":
+                    counts["fused_epilogue+per_scalar"]["panel_gemm_bias_relu"],
+                "masked_adam": counts["main"]["masked_adam"]}
     zero = [k for k, v in launches.items() if v == 0]
     if zero:
         return fail(f"kernels never launched on the path: {zero}")
@@ -378,20 +512,20 @@ def main() -> int:
     # phase 5 ---------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/"
     rows = []
-    for name, tot, source, replaces, lib in (
+    for name, tot, source, replaces in (
             ("panel_gemm", gemm, src + "panel_gemm.cu",
-             "src/repro/kernels/client_conv.py:112", gemm["library_ms"]),
+             "src/repro/kernels/client_conv.py:112"),
             ("panel_gemm_bias_relu", fused, src + "panel_gemm.cu",
-             "src/repro/kernels/client_conv.py:185", None),
-            ("masked_adam", adam, src + "masked_adam.cu",
-             "src/repro/kernels/masked_adam.py:36", None)):
+             "src/repro/kernels/client_conv.py:185"),
+            ("masked_adam", adam["main"], src + "masked_adam.cu",
+             "src/repro/kernels/masked_adam.py:36")):
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
                      "plain_ms": tot["plain_ms"],
                      "bound_ms": tot["bound_ms"],
                      "bound_by": bound(tot["bytes"], tot["flops"])[1],
-                     "library_ms": lib})
+                     "library_ms": tot["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,7 @@ import torch
 from repro_torch.weights import tree_leaves, tree_map
 
 
-def init_lenet_unit_masks(cfg, n_clients: int, device="cpu"):
+def init_lenet_unit_masks(cfg, n_clients: int, device="cuda"):
     from repro_torch.models.lenet import split_index
     s = split_index(cfg)
     ones = lambda u: torch.ones((n_clients, u), device=device)

@@ -29,8 +29,13 @@ INIT_LOSS = 100.0
 _JITTER = 2e-7
 
 
+def n_selected(n_clients: int, eta: float) -> int:
+    """Clients selected per global iteration: round(eta * N), at least 1."""
+    return max(1, int(round(eta * n_clients)))
+
+
 def ucb_init(n: int, *, gamma: float = 0.87, init_loss: float = INIT_LOSS,
-             device="cpu") -> dict:
+             device="cuda") -> dict:
     """Histories L=[init, init], S=[1, 1] per client (T=2)."""
     g = torch.tensor(gamma, dtype=torch.float32)
     full = lambda v: torch.full((n,), v, dtype=torch.float32)
@@ -104,10 +109,10 @@ class Orchestrator:
 
     def __init__(self, n_clients: int, eta: float, gamma: float = 0.87,
                  init_loss: float = INIT_LOSS, seed: int = 0, *,
-                 device="cpu",
+                 device="cuda",
                  jitter: Optional[Callable[[int, int], object]] = None):
         self.n = n_clients
-        self.k = max(1, int(round(eta * n_clients)))
+        self.k = n_selected(n_clients, eta)
         self.gamma = float(gamma)
         self.device = torch.device(device)
         self.state = ucb_init(n_clients, gamma=self.gamma,

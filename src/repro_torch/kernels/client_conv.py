@@ -69,13 +69,17 @@ def _panels(x, w):
 # ---------------------------------------------------------------------------
 
 
-def panel_gemm_plain(a, b, bias=None, *, rows: int = 8192):
+# rows per chunk of the plain version: bounds its (C, rows, K, N) product
+_PLAIN_ROWS = 8192
+
+
+def panel_gemm_plain(a, b, bias=None):
     """Plain PyTorch version of the kernel: each output is the float32
     sum over K of a[c, m, k] * b[c, k, n] (+ bias, ReLU), taken in row
-    chunks of ``rows`` to bound the (C, rows, K, N) product."""
+    chunks of ``_PLAIN_ROWS``."""
     outs = []
-    for m0 in range(0, a.shape[1], rows):
-        blk = a[:, m0:m0 + rows, :, None] * b[:, None, :, :]
+    for m0 in range(0, a.shape[1], _PLAIN_ROWS):
+        blk = a[:, m0:m0 + _PLAIN_ROWS, :, None] * b[:, None, :, :]
         outs.append(blk.sum(dim=2))
     out = torch.cat(outs, dim=1) if outs else a.new_zeros(
         (a.shape[0], 0, b.shape[2]))

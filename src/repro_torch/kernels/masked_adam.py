@@ -110,6 +110,14 @@ def masked_adam_cuda(p, g, mu, nu, mask, *, lr, b1, b2, eps, b1t, b2t):
     return tuple(outs)
 
 
+def _leaf(p, g, mu, nu, mask, **kw):
+    """The kernel for a CUDA leaf, the plain version for a CPU leaf."""
+    if p.device.type == "cpu":
+        return masked_adam_plain(p, g, mu, nu, mask, **kw)
+    return masked_adam_cuda(p, g.contiguous(), mu, nu,
+                            None if mask is None else mask.contiguous(), **kw)
+
+
 def masked_adam(p, g, mu, nu, mask=None, *, lr, b1=0.9, b2=0.999, eps=1e-8,
                 step=1):
     """One fused (masked) Adam step on one leaf -> (p, mu, nu).
@@ -120,11 +128,8 @@ def masked_adam(p, g, mu, nu, mask=None, *, lr, b1=0.9, b2=0.999, eps=1e-8,
     if not torch.is_tensor(step):
         step = torch.tensor(step, dtype=torch.int32, device=p.device)
     b1t, b2t = bias_corrections(step, b1, b2)
-    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, b1t=b1t, b2t=b2t)
-    if p.device.type == "cpu":
-        return masked_adam_plain(p, g, mu, nu, mask, **kw)
-    return masked_adam_cuda(p, g.contiguous(), mu, nu,
-                            None if mask is None else mask.contiguous(), **kw)
+    return _leaf(p, g, mu, nu, mask, lr=lr, b1=b1, b2=b2, eps=eps, b1t=b1t,
+                 b2t=b2t)
 
 
 def fused_adam_update(params, grads, state, *, lr, b1=0.9, b2=0.999,
@@ -132,12 +137,14 @@ def fused_adam_update(params, grads, state, *, lr, b1=0.9, b2=0.999,
     """Drop-in ``optim.adam.adam_update`` twin running every leaf through
     the fused kernel.  ``state`` is an ``adam_init`` dict whose ``step``
     is a scalar or a per-row ``(S,)`` vector; ``mask`` an optional tree
-    of multiplicative gradient masks."""
+    of multiplicative gradient masks.  The bias corrections are computed
+    once for all leaves."""
     step = state["step"] + 1
+    b1t, b2t = bias_corrections(step, b1, b2)
     flat_p = tree_leaves(params)
     flat_m = tree_leaves(mask) if mask is not None else [None] * len(flat_p)
-    out = [masked_adam(p, g, mu, nu, m, lr=lr, b1=b1, b2=b2, eps=eps,
-                       step=step)
+    out = [_leaf(p, g, mu, nu, m, lr=lr, b1=b1, b2=b2, eps=eps, b1t=b1t,
+                 b2t=b2t)
            for p, g, mu, nu, m in zip(
                flat_p, tree_leaves(grads), tree_leaves(state["mu"]),
                tree_leaves(state["nu"]), flat_m)]

@@ -214,7 +214,7 @@ def test_lenet_masks_match_reference():
     binarize and sparsity against ``repro.core.masks``."""
     jc, tc = _cfgs(**SMALL)
     C = 4
-    _close(tmasks.init_lenet_unit_masks(tc, C),
+    _close(tmasks.init_lenet_unit_masks(tc, C, device="cpu"),
            jmasks.init_lenet_unit_masks(jc, C), tol=0)
     sp = _np(jlenet.init_server_params(jc, jax.random.PRNGKey(2)))
     scal = jax.tree.map(

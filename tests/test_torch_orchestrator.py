@@ -36,6 +36,7 @@ def _state_close(got, want):
 def test_selections_equal_reference_over_many_rounds(n, eta, seed):
     ref = jorch.Orchestrator(n, eta, gamma=0.87, seed=seed)
     port = torch_orch.Orchestrator(n, eta, gamma=0.87, seed=seed,
+                                   device="cpu",
                                    jitter=reference_jitter(ref))
     _state_close(port.state, ref.state)
     rng = np.random.default_rng(seed)
@@ -57,7 +58,7 @@ def test_selections_equal_reference_over_many_rounds(n, eta, seed):
 def test_functional_api_matches_reference():
     n = 6
     sj = jorch.ucb_init(n, gamma=0.9)
-    st = torch_orch.ucb_init(n, gamma=0.9)
+    st = torch_orch.ucb_init(n, gamma=0.9, device="cpu")
     rng = np.random.default_rng(1)
     for step in range(4):
         np.testing.assert_allclose(torch_orch.ucb_advantage(st).numpy(),
@@ -82,8 +83,8 @@ def test_functional_api_matches_reference():
 
 
 def test_default_jitter_is_seeded_and_counter_keyed():
-    a = torch_orch.Orchestrator(7, 0.5, seed=3)
-    b = torch_orch.Orchestrator(7, 0.5, seed=3)
+    a = torch_orch.Orchestrator(7, 0.5, seed=3, device="cpu")
+    b = torch_orch.Orchestrator(7, 0.5, seed=3, device="cpu")
     sa = [a.select() for _ in range(4)]
     sb = [b.select() for _ in range(4)]
     for x, y in zip(sa, sb):
