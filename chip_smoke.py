@@ -4,29 +4,45 @@ NVIDIA card, and check it.
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero:
+Phases, in order; any failure exits non-zero, and each prints its wall
+time:
 
 1. the card's name and power limit (``nvidia-smi``); build every CUDA
    kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
-2. kernels: each kernel at the shapes phase 4's runs give it (derived
+2. LeNet kernels: each at the shapes phase 4's runs give it (derived
    from their hparams: C=32 clients, B=32, S=19 selected) against its
    plain PyTorch version on the card, with its device time
    (torch.profiler), the plain version's, that of one PyTorch library
    call where one computes the same function, and the bound (bytes over
    3.35 TB/s or FLOPs over 67 TFLOP/s fp32);
-3. one teacher-forced iteration from the same state on the card and on
-   the CPU, compared;
+3. one teacher-forced LeNet iteration from the same state on the card
+   and on the CPU, compared;
 4. ``AdaSplitTrainer`` on ``lenet-cifar`` at full width (C=32, B=32,
    4 rounds), with every kernel's launch count from that run; a second,
    shorter run with ``fused_epilogue=True`` and per-scalar masks drives
    the bias+ReLU epilogue kernel;
-5. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+5. the flash-attention kernel at every prefill shape of phase 7's
+   serving runs (derived from ``serving_runs()`` through the engine's
+   own batching policy; bf16, causal, kv_len where ragged) and at
+   phase 6's f32 shape, against its plain version, with device times,
+   one ``scaled_dot_product_attention`` call as the library yardstick,
+   and the bound (bytes over 3.35 TB/s or the causal FLOPs over
+   989 TFLOP/s bf16);
+6. qwen2-0.5b at full width cut to 2 layers, strict fp32: a prefill and
+   teacher-forced decode steps on the card and on the CPU, compared;
+7. serving qwen2-0.5b at full width, all 24 layers, bf16: the session
+   CLI (``repro_torch.launch.serve``, client 0's mask folded, B=8,
+   prompt 512, 32 new tokens) and ``ServeEngine`` on 16 ragged requests
+   from 4 clients with mixed (gated) and per-client (folded) batches;
+   the flash launches of each run must be 24 per prefill;
+8. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the repository around it, and imports nothing
 of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -37,12 +53,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 GEMM_TOL = 1e-4                 # f32 FMA sums of <=1600 terms, other order
 ADAM_TOL = 1e-6                 # same f32 ops in the same order (-fmad=false)
 # the library's Adam takes sqrt(nu)/sqrt(1-b2^t) and lerps mu: the same
 # function in other f32 ops, one ULP of |p| < 8 apart
 LIBRARY_ADAM_TOL = 1e-6
 N_CLIENTS = 32                  # phase 4's clients; phase 2's shapes follow
+# flash attention against its plain version: both f32 math, other order
+# and exp2 for exp; bf16 output rounds to 8 bits (one step ~ 2**-8..2**-7
+# on values of order 1)
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# card vs CPU, qwen2-0.5b at full width, 2 layers, strict fp32: other
+# summation orders in f32 GEMMs of width <= 4864
+LM_REL_TOL = 1e-4
 
 
 def trainer_runs():
@@ -110,8 +134,8 @@ def device_ms(fn, iters: int) -> float:
     return busy / iters / 1e3
 
 
-def bound(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -431,15 +455,21 @@ def run_trainer(cfg, hp, clients, label):
 def profile_iterations(tr, xs, ys, label):
     """Device time by kernel over 3 global iterations, and the device's
     busy share of the wall time (torch.profiler)."""
+    profile_calls(lambda: tr.train_iteration(xs, ys, global_phase=True), 3,
+                  label, "global iterations", "iter")
+
+
+def profile_calls(fn, n, label, what, unit):
+    """Device time by kernel over ``n`` calls of ``fn``, and the device's
+    busy share of their wall time (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    n_it = 3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_it):
-            tr.train_iteration(xs, ys, global_phase=True)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = device_events(prof)
@@ -447,12 +477,307 @@ def profile_iterations(tr, xs, ys, label):
     if not dev:
         print(f"  [{label}] profile: no device time recorded (not measured)")
         return
-    print(f"  [{label}] profile over {n_it} global iterations: wall "
-          f"{wall_us / n_it / 1e3:.3f} ms/iter, device busy "
-          f"{busy / n_it / 1e3:.3f} ms/iter, busy share {busy / wall_us:.4f}")
+    print(f"  [{label}] profile over {n} {what}: wall "
+          f"{wall_us / n / 1e3:.3f} ms/{unit}, device busy "
+          f"{busy / n / 1e3:.3f} ms/{unit}, busy share {busy / wall_us:.4f}, "
+          f"{sum(d[2] for d in dev) // n} device ops/{unit}")
     for key, us, count in sorted(dev, key=lambda d: -d[1])[:12]:
-        print(f"    {us / n_it / 1e3:9.4f} ms/iter {count // n_it:5d} "
-              f"calls/iter  {key[:90]}")
+        print(f"    {us / n / 1e3:9.4f} ms/{unit} {count // n:5d} "
+              f"calls/{unit}  {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phases 5-7: personalized LM serving on qwen2-0.5b
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen2-0.5b"
+LM_TWO_DEVICE = {"n_layers": 2, "batch": 2, "prompt_len": 64, "decode": 4}
+
+
+def serving_runs():
+    """Phase 7's serving runs: the session CLI (client 0 of 4, its mask
+    folded), and the engine's 16 requests from 4 clients (prompt lengths
+    128-512, 16-32 new tokens) in both batching modes.  Phase 5 checks
+    the flash kernel at the shapes these runs give it."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    n_clients = 4
+    return {
+        "session": {"batch": 8, "prompt_len": 512, "gen": 32, "client": 0,
+                    "n_clients": n_clients},
+        "requests": [(i % n_clients, int(rng.integers(128, 513)),
+                      int(rng.integers(16, 33))) for i in range(16)],
+        "n_clients": n_clients,
+        "engines": {"mixed": {"max_batch": 8, "mixed_batches": True},
+                    "per_client": {"max_batch": 8, "mixed_batches": False}}}
+
+
+def session_argv(runs):
+    s = runs["session"]
+    return ["--arch", SERVE_ARCH, "--fold-mask", "--client", str(s["client"]),
+            "--n-clients", str(s["n_clients"]), "--batch", str(s["batch"]),
+            "--prompt-len", str(s["prompt_len"]), "--gen", str(s["gen"])]
+
+
+def make_requests(runs, vocab_size):
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(1)
+    return [Request(i, c, rng.integers(0, vocab_size, n).astype(np.int32),
+                    new)
+            for i, (c, n, new) in enumerate(runs["requests"])]
+
+
+def prefill_shapes(runs):
+    """(label, B, S, kv_len) of every prefill the serving runs give the
+    flash kernel: the session's equal-length batch, and each engine
+    batch as the engine's own policy forms it, right-padded to its
+    longest prompt (kv_len the prompt lengths when ragged, else None)."""
+    from repro_torch.serve import ServeEngine
+    s = runs["session"]
+    out = [("session", s["batch"], s["prompt_len"], None)]
+    for mode, kw in runs["engines"].items():
+        eng = ServeEngine(None, None, device="cpu", **kw)
+        for r in make_requests(runs, 2):
+            eng.submit(r)
+        n = 0
+        while eng.queue:
+            lens = [len(r.prompt) for r in eng._next_batch()]
+            out.append((f"{mode} batch {n}", len(lens), max(lens),
+                        None if len(set(lens)) == 1 else lens))
+            n += 1
+    return out
+
+
+def check_flash(cfg, runs, gen):
+    """The kernel at every serving prefill shape (bf16, causal, kv_len
+    where ragged) and at phase 6's f32 one, against its plain version;
+    device times of the kernel, the plain version and one SDPA call
+    (library yardstick only: the port never calls it); the bound from
+    the bytes each call must move and the causal, kv_len-limited pairs
+    it must compute.  Totals are over the bf16 serving shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0}
+    two = LM_TWO_DEVICE
+    cases = [sh + (torch.bfloat16,) for sh in prefill_shapes(runs)] + [
+        ("card-vs-CPU prefill", two["batch"], two["prompt_len"], None,
+         torch.float32)]
+    for label, B, S, lens, dtype in cases:
+        q, k, v = (torch.randn((B, S, h, hd), device="cuda", generator=gen)
+                   .to(dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+        kv_len = None if lens is None else torch.tensor(
+            lens, dtype=torch.int32, device="cuda")
+        got = fa.flash_attention_cuda(q, k, v, causal=True, kv_len=kv_len)
+        want = fa.flash_attention_plain(q, k, v, causal=True, kv_len=kv_len)
+        torch.cuda.synchronize()
+        name = str(dtype).replace("torch.", "")
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= FLASH_TOL[name]:
+            raise AssertionError(f"flash_attention {label}: max abs err {err}")
+        pos = torch.arange(S, device="cuda")
+        mask = None if lens is None else (
+            (pos[None, :] <= pos[:, None])[None, None]
+            & (pos[None, None, None, :] < kv_len[:, None, None, None]))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+        lib_err = float((sdpa().float() - want.float()).abs().max())
+        ms = device_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, causal=True, kv_len=kv_len), 10)
+        plain_ms = device_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, kv_len=kv_len), 3)
+        lib_ms = device_ms(sdpa, 10)
+        # each input read once, the output written once; QK^T and PV over
+        # the (query, key) pairs causality and kv_len leave
+        L = lens or [S] * B
+        pairs = sum(n * (n + 1) // 2 + (S - n) * n for n in L)
+        flops = 4.0 * hd * Hq * pairs
+        nbytes = q.element_size() * B * S * hd * (2 * Hq + 2 * Hkv) \
+            + (4 * B if lens else 0)
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        bms, by = bound(nbytes, flops, rate)
+        print(f"  flash_attention {label} {name} B={B} Hq={Hq} Hkv={Hkv} "
+              f"S={S} hd={hd} kv_len={'ragged' if lens else 'full'}: "
+              f"max_abs_err={err:.3e} (tol {FLASH_TOL[name]}) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} "
+              f"sdpa_ms={lib_ms:.4f} (max_abs_err vs plain {lib_err:.3e}) "
+              f"bound_ms={bms:.4f} ({by}) ratio={ms / bms:.1f}x")
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        if dtype == torch.bfloat16:
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("bound_ms", bms),
+                             ("bytes", nbytes), ("flops", flops)):
+                tot[key] += val
+        del q, k, v, got, want, mask
+    tot["bound_by"] = bound(tot["bytes"], tot["flops"], BF16_FLOP_PER_S)[1]
+    return tot
+
+
+def lm_on_two_devices():
+    """qwen2-0.5b at full width cut to 2 layers, strict fp32: one prefill
+    and teacher-forced decode steps on the card and on the CPU, from
+    the same params (the port's own init, on the card)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import init_serve_params
+    from repro_torch.models import decode as dec
+    from repro_torch.weights import tree_map
+    two = LM_TWO_DEVICE
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              n_layers=two["n_layers"], dtype="float32")
+    B, S = two["batch"], two["prompt_len"]
+    gpu = init_serve_params(cfg, 0, "float32", device="cuda")
+    cpu = tree_map(lambda t: t.cpu(), gpu)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))
+    fa.reset_launches()
+    lg, cg = dec.prefill(cfg, gpu, toks.cuda(), cache_len=S + two["decode"])
+    launches = fa.LAUNCHES["flash_attention"]
+    lc, cc = dec.prefill(cfg, cpu, toks, cache_len=S + two["decode"])
+    worst, same, steps = 0.0, True, []
+    for t in range(two["decode"] + 1):
+        if t:
+            lg, cg = dec.decode_step(cfg, gpu, tok.cuda(), cg, S + t - 1)
+            lc, cc = dec.decode_step(cfg, cpu, tok, cc, S + t - 1)
+        # over the real vocabulary: the pad columns carry the -1e9 bias
+        a, b = lg.cpu()[..., :cfg.vocab_size], lc[..., :cfg.vocab_size]
+        scale = float(b.abs().max())
+        rel = float((a - b).abs().max()) / scale
+        worst = max(worst, rel)
+        tok = a.argmax(-1).to(torch.int32)      # the card's, fed to both
+        top2 = b.topk(2, dim=-1).values
+        tie = bool(((top2[..., 0] - top2[..., 1]) <= 2 * rel * scale).any())
+        eq = bool(torch.equal(tok, b.argmax(-1).to(torch.int32)))
+        same &= eq or tie
+        steps.append(tok[:, 0].tolist())
+    print(f"  prefill B={B} S={S} + {two['decode']} decode steps, "
+          f"{two['n_layers']} layers of width {cfg.d_model}: flash launches "
+          f"on the card {launches}; logits max rel err {worst:.3e}; greedy "
+          f"tokens equal on both devices: {same} (card's: {steps})")
+    if launches != two["n_layers"]:
+        raise AssertionError(f"card prefill launched flash {launches} times")
+    if not (worst < LM_REL_TOL and same):
+        raise AssertionError("card and CPU LM steps disagree")
+
+
+def _sync():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def timed(module, name):
+    """Wrap ``module.name`` so that each call's wall time, synchronised
+    before and after, is appended to the yielded list."""
+    fn, log = getattr(module, name), []
+
+    def wrapper(*a, **kw):
+        _sync()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        _sync()
+        log.append(time.perf_counter() - t0)
+        return out
+    setattr(module, name, wrapper)
+    try:
+        yield log
+    finally:
+        setattr(module, name, fn)
+
+
+def run_serving(cfg, runs, device="cuda"):
+    """The session CLI and the engine in both modes, all layers, bf16.
+    Returns per run its flash launches and prefill calls."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.steps import init_serve_params
+    from repro_torch.models import decode as dec
+    from repro_torch.serve import ServeEngine
+    params = init_serve_params(cfg, 0, device=device)
+    masks = tserve.random_masks(cfg, runs["n_clients"], device=device)
+    warm = torch.ones((2, 64), dtype=torch.int32, device=device)
+    tserve.serve_session(cfg, params, warm, 2, device=device)   # warm-up
+    out = {}
+    s = runs["session"]
+    fa.reset_launches()
+    with timed(dec, "prefill") as pre, timed(tserve, "serve_session") as ses:
+        toks = tserve.main(session_argv(runs) + ["--device", device])
+    if toks.shape != (s["batch"], s["gen"]) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"session tokens {toks.shape} out of range")
+    dec_ms = (ses[0] - pre[0]) / (s["gen"] - 1) * 1e3
+    print(f"  [session] B={s['batch']} prompt={s['prompt_len']} "
+          f"gen={s['gen']}: tokens/s={s['batch'] * s['gen'] / ses[0]} "
+          f"prefill_ms={pre[0] * 1e3} decode_ms_per_token={dec_ms} "
+          f"session_s={ses[0]} flash_launches="
+          f"{fa.LAUNCHES['flash_attention']} prefills={len(pre)}")
+    out["session"] = (fa.LAUNCHES["flash_attention"], len(pre))
+    tokens = {}
+    for mode, kw in runs["engines"].items():
+        eng = ServeEngine(cfg, params, masks, device=device, **kw)
+        reqs = make_requests(runs, cfg.vocab_size)
+        for r in reqs:
+            eng.submit(r)
+        fa.reset_launches()
+        with timed(dec, "prefill") as pre:
+            _sync()
+            t0 = time.perf_counter()
+            done = eng.run_until_idle()
+            _sync()
+            wall = time.perf_counter() - t0
+        st = eng.stats
+        if sorted(r.req_id for r in done) != list(range(len(reqs))) or any(
+                r.output.shape != (r.max_new_tokens,)
+                or not ((r.output >= 0) & (r.output < cfg.vocab_size)).all()
+                for r in done):
+            raise AssertionError(f"[{mode}] a request did not complete "
+                                 "with in-vocab tokens")
+        tokens[mode] = {r.req_id: r.output for r in done}
+        lat = np.array([r.latency_s for r in done])
+        print(f"  [engine {mode}] {len(done)} requests in {wall} s: "
+              f"tokens/s={st.tokens / wall} completed/s={st.completed / wall}"
+              f" prefill_ms={[round(x * 1e3, 3) for x in pre]} "
+              f"decode_ms_per_step={(wall - sum(pre)) / st.decode_steps * 1e3}"
+              f" latency_s p50={np.median(lat)} max={lat.max()} "
+              f"occupancy={st.occupancy} flash_launches="
+              f"{fa.LAUNCHES['flash_attention']}")
+        print(f"  [engine {mode}] EngineStats "
+              + json.dumps(dataclasses.asdict(st)))
+        out[mode] = (fa.LAUNCHES["flash_attention"], st.batches)
+    a, b = tokens["mixed"], tokens["per_client"]
+    agree = np.mean([np.mean(a[i] == b[i]) for i in a])
+    print(f"  gated (mixed) vs folded (per-client) batches: {agree:.4f} of "
+          "tokens equal (bf16 GEMMs of other batch shapes may tip a "
+          "near-tie; equality is held in f32 by tests/test_torch_serve.py)")
+
+    # where the time goes: the session's prefill and its decode steps
+    S = s["prompt_len"]
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (s["batch"], S)).astype(np.int32)).to(device)
+    held = {}
+
+    def prefill():
+        held["out"] = dec.prefill(cfg, params, prompts,
+                                  cache_len=S + s["gen"] + 1)
+    profile_calls(prefill, 2, "session prefill", "prefills", "prefill")
+    lg, cache = held["out"]
+    tok = lg.argmax(-1).to(torch.int32)
+    profile_calls(lambda: dec.decode_step(cfg, params, tok, cache, S), 4,
+                  "session decode", "decode steps", "step")
+    return out
 
 
 def main() -> int:
@@ -462,6 +787,13 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         return fail("no CUDA device: the port's smoke run needs a card")
+    t_run = time.perf_counter()
+    clock = {"t": t_run}
+
+    def phase_done(n):
+        now = time.perf_counter()
+        print(f"phase {n} wall: {now - clock['t']:.2f} s")
+        clock["t"] = now
 
     # phase 1 ---------------------------------------------------------
     smi = subprocess.run(
@@ -473,11 +805,13 @@ def main() -> int:
     from repro_torch.weights import strict_fp32
     strict_fp32()
     built = _build.build_all()
-    print(f"build: {built['seconds']:.2f} s (nvcc, both sources in parallel)")
+    print(f"build: {built['seconds']:.2f} s (nvcc, all {len(_build.EXTRA)} "
+          "sources in parallel)")
     for name, log in _build.build_log.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
+    phase_done(1)
 
     # phase 2 ---------------------------------------------------------
     from repro_torch.configs.base import get_config
@@ -490,10 +824,12 @@ def main() -> int:
     fused = check_gemm(cfg, runs["fused_epilogue+per_scalar"], gen)
     adam = {label: check_adam(cfg, hp, gen, label)
             for label, hp in runs.items()}
+    phase_done(2)
 
     # phase 3 ---------------------------------------------------------
     print("phase 3: one iteration on the card and on the CPU")
     iteration_on_two_devices(cfg, runs["main"])
+    phase_done(3)
 
     # phase 4 ---------------------------------------------------------
     from repro_torch.data.synthetic import mixed_noniid
@@ -505,11 +841,39 @@ def main() -> int:
                 "panel_gemm_bias_relu":
                     counts["fused_epilogue+per_scalar"]["panel_gemm_bias_relu"],
                 "masked_adam": counts["main"]["masked_adam"]}
+    phase_done(4)
+
+    # phase 5 ---------------------------------------------------------
+    lm = get_config(SERVE_ARCH)
+    serving = serving_runs()
+    print(f"phase 5: flash attention against its plain version, at "
+          f"phase 7's prefill shapes ({SERVE_ARCH}) and phase 6's f32 one")
+    flash = check_flash(lm, serving, gen)
+    phase_done(5)
+
+    # phase 6 ---------------------------------------------------------
+    print(f"phase 6: {SERVE_ARCH} prefill and decode on the card and on "
+          "the CPU (full width, 2 layers, strict fp32)")
+    lm_on_two_devices()
+    phase_done(6)
+
+    # phase 7 ---------------------------------------------------------
+    print(f"phase 7: serving {SERVE_ARCH} at full width, all "
+          f"{lm.n_layers} layers, bf16: the session CLI and ServeEngine "
+          "in both batching modes")
+    served = run_serving(lm, serving)
+    for run, (n, prefills) in served.items():
+        if n != lm.n_layers * prefills:
+            return fail(f"[{run}] {n} flash launches for {prefills} "
+                        f"prefills of {lm.n_layers} layers")
+    launches["flash_attention"] = sum(n for n, _ in served.values())
+    phase_done(7)
+
     zero = [k for k, v in launches.items() if v == 0]
     if zero:
         return fail(f"kernels never launched on the path: {zero}")
 
-    # phase 5 ---------------------------------------------------------
+    # phase 8 ---------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/"
     rows = []
     for name, tot, source, replaces in (
@@ -518,14 +882,18 @@ def main() -> int:
             ("panel_gemm_bias_relu", fused, src + "panel_gemm.cu",
              "src/repro/kernels/client_conv.py:185"),
             ("masked_adam", adam["main"], src + "masked_adam.cu",
-             "src/repro/kernels/masked_adam.py:36")):
+             "src/repro/kernels/masked_adam.py:36"),
+            ("flash_attention", flash, src + "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:74")):
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
                      "plain_ms": tot["plain_ms"],
                      "bound_ms": tot["bound_ms"],
-                     "bound_by": bound(tot["bytes"], tot["flops"])[1],
+                     "bound_by": tot.get("bound_by") or bound(
+                         tot["bytes"], tot["flops"])[1],
                      "library_ms": tot["library_ms"]})
+    print(f"total wall: {time.perf_counter() - t_run:.2f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,18 @@
 """Config system of the port: the ``ModelConfig`` fields the LeNet path
-reads, and the registry.
+and the dense decoder-only LM path read, and the registry.
 
-A copy of the reference's ``configs/base.py`` cut to the conv backbone;
-the transformer fields arrive with the LM slice.
+A copy of the reference's ``configs/base.py`` cut to the conv backbone
+and the dense LM stack: the M-RoPE, SSM, MoE-capacity and
+encoder-decoder fields and branches are left out (their slices bring
+them).  ``n_experts`` and ``attn_layer_period`` stay at 0 on every
+registered config and only keep ``is_moe_layer``/``is_attn_layer``
+and ``split_layer`` the reference's functions.
 """
 from __future__ import annotations
 
 import importlib
-from dataclasses import dataclass
-from typing import Dict, Tuple
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Tuple
 
 
 @dataclass(frozen=True)
@@ -16,19 +20,96 @@ class ModelConfig:
     name: str
     family: str
     source: str
+
+    n_layers: int = 0
     d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+
+    # attention details
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: int = 0  # 0 = full attention
+    norm: str = "rms"
+    tie_embeddings: bool = False  # metadata: the LM head is server-owned
+
+    # MoE / hybrid interleave (0 on every config this slice serves)
+    n_experts: int = 0
+    moe_layer_period: int = 1
+    moe_layer_offset: int = 0
+    first_k_dense: int = 0
+    attn_layer_period: int = 0
+    attn_layer_offset: int = 0
+
     # conv/classification backbone (the paper's own model)
     is_conv: bool = False
     image_size: int = 32
     n_classes: int = 10
     conv_channels: Tuple[int, ...] = ()
+
     # AdaSplit split point: fraction of layers on the client
     mu: float = 0.2
+
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.n_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    # number of client layers (bottom of the stack)
+    @property
+    def split_layer(self) -> int:
+        n = self.n_layers
+        s = max(1, int(round(self.mu * n)))
+        if self.attn_layer_period:
+            s = max(self.attn_layer_period,
+                    (s // self.attn_layer_period) * self.attn_layer_period)
+        return min(s, n - 1)
+
+    def is_moe_layer(self, i: int) -> bool:
+        if not self.n_experts or i < self.first_k_dense:
+            return False
+        return (i % self.moe_layer_period) == self.moe_layer_offset
+
+    def is_attn_layer(self, i: int) -> bool:
+        if self.attn_layer_period == 0:
+            return True
+        return (i % self.attn_layer_period) == self.attn_layer_offset
+
+    # padded vocab so a sharded vocab axis always divides it
+    def padded_vocab(self, multiple: int = 256) -> int:
+        return ((self.vocab_size + multiple - 1) // multiple) * multiple
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: <=2 layers, d_model<=256, <=4 heads."""
+        d_model = min(self.d_model, 256) or 64
+        n_heads = min(self.n_heads, 4)
+        head_dim = max(16, d_model // max(n_heads, 1)) if n_heads else 0
+        n_kv = min(self.n_kv_heads, n_heads) or (1 if n_heads else 0)
+        kw: Dict[str, Any] = dict(
+            n_layers=min(self.n_layers, 2),
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=head_dim,
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512) or self.vocab_size,
+            n_experts=min(self.n_experts, 4),
+            first_k_dense=min(self.first_k_dense, 0),
+            conv_channels=tuple(min(c, 16) for c in self.conv_channels),
+        )
+        if self.attn_layer_period:
+            kw.update(attn_layer_period=2, attn_layer_offset=1,
+                      moe_layer_period=2, moe_layer_offset=1, n_layers=4)
+        return replace(self, **kw)
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
-ARCH_MODULES = ["lenet_cifar"]
+ARCH_MODULES = ["lenet_cifar", "qwen2_0_5b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -1,11 +1,13 @@
-"""AdaSplit per-client server masks (§3.3, eq. 7-8), LeNet half (port of
-``repro.core.masks``).
+"""AdaSplit per-client server masks (§3.3, eq. 7-8): the LeNet half and
+the transformer half (port of ``repro.core.masks``).
 
 * ``per_scalar`` — one mask value per server parameter, applied by
   transforming the params before the forward (``apply_scalar_masks``),
   so grads are masked by the chain rule — exactly eq. 7.
 * ``per_unit`` — one mask value per conv output channel / FC hidden
-  unit, applied in activation space as gates.
+  unit / attention head / MLP hidden unit, applied in activation space
+  as gates, or folded into the server weights for serving
+  (``fold_unit_masks``).
 
 Mask leaves are continuous, init 1.0, driven sparse by the L1 term;
 ``binarize`` thresholds them and ``sparsity`` reports the fraction of
@@ -15,7 +17,95 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.transformer import Segment, model_plan
 from repro_torch.weights import tree_leaves, tree_map
+
+
+# ---------------------------------------------------------------------------
+# per-unit masks (transformer stack)
+# ---------------------------------------------------------------------------
+
+
+def _seg_unit_masks(cfg, seg: Segment, n_clients: int, device):
+    def one(desc):
+        m = {}
+        if desc.mixer != "attn":
+            raise NotImplementedError("SSM mixer masks come with the "
+                                      "SSM/hybrid slice")
+        m["mixer"] = torch.ones((n_clients, seg.n_rep, cfg.n_heads),
+                                device=device)
+        if desc.ffn == "dense":
+            m["ffn"] = torch.ones((n_clients, seg.n_rep, cfg.d_ff),
+                                  device=device)
+        elif desc.ffn == "moe":
+            raise NotImplementedError("expert masks come with the MoE slice")
+        return m
+    return {str(j): one(d) for j, d in enumerate(seg.body)}
+
+
+def init_unit_masks(cfg, n_clients: int, device="cuda"):
+    """One entry per server segment: leaves (C, n_rep, U)."""
+    return [_seg_unit_masks(cfg, s, n_clients, device)
+            for s in model_plan(cfg)["server_segments"]]
+
+
+def expand_gates(masks, client_ids):
+    """Per-example gates: leaves (C, n_rep, U) -> (n_rep, B, U)."""
+    ids = torch.as_tensor(client_ids, dtype=torch.long)
+    return [tree_map(lambda l: l[ids.to(l.device)].transpose(0, 1), seg)
+            for seg in masks]
+
+
+def gates_for_client(masks, client: int):
+    """Single-client gates: leaves (n_rep, U)."""
+    return [tree_map(lambda l: l[client], seg) for seg in masks]
+
+
+def stack_client_gates(per_client_gates):
+    """Stack per-client gate trees (leaves (n_rep, U)) into per-example
+    gates (leaves (n_rep, B, U)) for a mixed-client serving batch."""
+    return [tree_map(lambda *ls: torch.stack(ls, dim=1), *seg)
+            for seg in zip(*per_client_gates)]
+
+
+def fold_unit_masks(cfg, server_params, masks, client: int, *,
+                    threshold: float = 0.0):
+    """Fold client ``client``'s per-unit masks into the server weights.
+
+    Equivalent to gating at every step (gating a unit's output == scaling
+    the rows of the following projection: the attention ``wo`` rows of
+    a head, the ``w_down`` rows of an MLP hidden unit), but paid ONCE
+    per serving session.  threshold > 0 binarises first.  Only ``wo``
+    and ``w_down`` are copied; every other leaf is shared with
+    ``server_params``."""
+    gates = gates_for_client(masks, client)
+    if threshold > 0:
+        gates = binarize(gates, threshold)
+    new_segments = []
+    for seg, sp, gs in zip(model_plan(cfg)["server_segments"],
+                           server_params["segments"], gates):
+        sp = list(sp)
+        for j, desc in enumerate(seg.body):
+            layer = dict(sp[j])
+            g = gs[str(j)]
+            if g.get("mixer") is not None:
+                gm = g["mixer"]                  # (n_rep, H)
+                mixer = dict(layer["mixer"])
+                rows = gm.repeat_interleave(cfg.head_dim, dim=-1)
+                mixer["wo"] = mixer["wo"] * rows[..., None].to(
+                    mixer["wo"].dtype)
+                layer["mixer"] = mixer
+            if g.get("ffn") is not None and "ffn" in layer:
+                gf = g["ffn"]                    # (n_rep, F)
+                ffn = dict(layer["ffn"])
+                ffn["w_down"] = ffn["w_down"] * gf[..., None].to(
+                    ffn["w_down"].dtype)
+                layer["ffn"] = ffn
+            sp[j] = layer
+        new_segments.append(sp)
+    out = dict(server_params)
+    out["segments"] = new_segments
+    return out
 
 
 def init_lenet_unit_masks(cfg, n_clients: int, device="cuda"):

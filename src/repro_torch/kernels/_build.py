@@ -25,7 +25,8 @@ COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v"]
 # per-source extra flags: the Adam step rounds every multiply and add
 # separately, as the plain fp32 version does
-EXTRA = {"masked_adam": ["-fmad=false"], "panel_gemm": []}
+EXTRA = {"masked_adam": ["-fmad=false"], "panel_gemm": [],
+         "flash_attention": []}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}

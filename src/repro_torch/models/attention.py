@@ -1,0 +1,177 @@
+"""GQA attention: init, full-sequence forward (train / prefill) and
+single-token decode with an (optionally windowed ring-buffer) KV cache.
+Port of ``repro.models.attention``, plain-RoPE branch only.
+
+Every full-sequence self-attention goes through
+``kernels.flash_attention`` (the CUDA kernel on the card), ragged
+batches included: where the reference masks keys with ``kv_valid`` and
+leaves its flash path for the einsum one, the port passes the prefix
+length ``kv_len`` to the kernel.  Decode attention is ``mha_einsum`` in
+plain torch ops, as in the reference (one query row per step).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+def attention_init(gen, cfg, lead=()):
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, d, hq * hd, lead=lead),
+        "wk": dense_init(gen, d, hkv * hd, lead=lead),
+        "wv": dense_init(gen, d, hkv * hd, lead=lead),
+        "wo": dense_init(gen, hq * hd, d, lead=lead),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            p[name] = torch.zeros(tuple(lead) + (n * hd,), device=gen.device)
+    return p
+
+
+def _project_qkv(p, x, cfg, dtype):
+    B, S, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"].to(dtype)
+    k = x @ p["wk"].to(dtype)
+    v = x @ p["wv"].to(dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dtype)
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    return (q.reshape(B, S, hq, hd), k.reshape(B, S, hkv, hd),
+            v.reshape(B, S, hkv, hd))
+
+
+def _rope_qk(q, k, cfg, positions):
+    if positions is None or not cfg.rope_theta > 0:
+        return q, k
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+
+def mha_einsum(q, k, v, *, causal: bool, window: int = 0,
+               q_offset: int = 0, kv_valid: Optional[torch.Tensor] = None):
+    """Plain attention in float32 (decode / oracle).
+
+    q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd); kv_valid: optional
+    (B, Sk) bool key mask.  GQA by repeating kv heads."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.to(torch.float32)
+    kf = k.to(torch.float32).repeat_interleave(G, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(G, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / (hd ** 0.5)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = scores.masked_fill(~mask, NEG_INF)
+    if kv_valid is not None:
+        scores = scores.masked_fill(~kv_valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, vf).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Layer-level entry points
+# ---------------------------------------------------------------------------
+
+
+def _head_gate(out, gate, dtype):
+    """AdaSplit per-head server mask, applied PRE-wo on (B, S, H, hd):
+    gate (H,) for one client or (B, H) per example."""
+    if gate is None:
+        return out
+    g = gate.to(dtype)
+    g = g[None, None, :, None] if g.ndim == 1 else g[:, None, :, None]
+    return out * g
+
+
+def attn_forward(p, x, cfg, *, positions, causal=True, window=0,
+                 head_gate=None, kv_len=None):
+    """Full-sequence self-attention (train / prefill).
+
+    kv_len: optional (B,) int32 count of each row's valid keys for
+    right-padded ragged batches — keys past it contribute nothing to
+    any query (the reference's prefix ``kv_valid`` mask).
+    head_gate: AdaSplit structured mask, (H,) or (B, H), gating each
+    head's output before the wo projection.
+    Returns (out, (k, v)) so prefill can stash the cache."""
+    dtype = x.dtype
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, dtype)
+    q, k = _rope_qk(q, k, cfg, positions)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal, window=window,
+                          kv_len=kv_len).transpose(1, 2)
+    out = _head_gate(out, head_gate, dtype)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"].to(dtype), (k, v)
+
+
+def init_kv_cache(cfg, batch, length, dtype, device="cuda"):
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_decode(p, x, cache, pos, cfg, *, window=0, head_gate=None):
+    """One-token decode.  x: (B, 1, D).
+
+    pos is a scalar (an int or a 0-d tensor: the whole batch at one
+    position) or a (B,) int tensor of PER-SLOT positions: each row
+    writes its K/V at its own cache slot and attends only keys at
+    ``idx <= pos[b]``.  With ``window`` the cache is a ring buffer of
+    that length.  The cache is updated IN PLACE (the reference returns
+    a new one; here the old one is not needed again and a copy per step
+    would double the cache traffic); returns (out, cache)."""
+    dtype = x.dtype
+    B = x.shape[0]
+    hq, hd = cfg.n_heads, cfg.head_dim
+    q, k, v = _project_qkv(p, x, cfg, dtype)
+    per_slot = torch.is_tensor(pos) and pos.ndim == 1
+    if per_slot:
+        posv = pos.to(device=x.device, dtype=torch.long)
+        posb = posv[:, None]
+    else:
+        pos = int(pos)
+        posb = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q, k = _rope_qk(q, k, cfg, posb)
+    k_all, v_all = cache["k"], cache["v"]
+    L = k_all.shape[1]
+    idx = torch.arange(L, device=x.device)
+    if per_slot:
+        slot = posv % L if window else posv.clamp(max=L - 1)
+        bidx = torch.arange(B, device=x.device)
+        k_all[bidx, slot] = k[:, 0].to(k_all.dtype)
+        v_all[bidx, slot] = v[:, 0].to(v_all.dtype)
+        if window:
+            kv_valid = idx[None, :] < torch.clamp(posv + 1, max=L)[:, None]
+        else:
+            kv_valid = idx[None, :] <= posv[:, None]
+    else:
+        slot = pos % L if window else min(pos, L - 1)
+        k_all[:, slot] = k[:, 0].to(k_all.dtype)
+        v_all[:, slot] = v[:, 0].to(v_all.dtype)
+        n_valid = min(pos + 1, L) if window else pos + 1
+        kv_valid = (idx < n_valid)[None, :].expand(B, L)
+    out = mha_einsum(q, k_all, v_all, causal=False, kv_valid=kv_valid)
+    out = _head_gate(out, head_gate, dtype)
+    out = out.reshape(B, 1, hq * hd)
+    return out @ p["wo"].to(dtype), cache

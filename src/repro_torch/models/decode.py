@@ -1,0 +1,174 @@
+"""Inference paths over the composed client+server model: cache init,
+prefill (a cache-building forward) and single-token decode.  Port of
+``repro.models.decode``, decoder-only.
+
+Cache layout: ``{"client": [seg0_cache, ...], "server": [...]}``; each
+segment cache has leading ``n_rep`` leaves, keyed "0".."P-1" per body
+position, each entry ``{"mixer": {"k", "v"}}`` of shape
+``(n_rep, B, L, Hkv, hd)``.  Windowed attention caches are ring
+buffers.  Decode updates the cache in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import apply_norm, embed, unembed, \
+    vocab_pad_bias
+from repro_torch.models.transformer import (Segment, _client_inputs, _dtype,
+                                            _positions_for, model_plan,
+                                            run_segments, run_segments_decode)
+
+
+def _seg_cache(cfg, seg: Segment, batch, cache_len, dtype, window, device):
+    L = min(cache_len, window) if window else cache_len
+
+    def one():
+        kv = attn.init_kv_cache(cfg, batch, L, dtype, device)
+        return {n: t.expand((seg.n_rep,) + t.shape).contiguous()
+                for n, t in kv.items()}
+    return {str(j): {"mixer": one()} for j in range(len(seg.body))}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, dtype=None,
+               window: int = 0, device="cuda"):
+    dtype = _dtype(cfg, dtype)
+    plan = model_plan(cfg)
+    return {side: [_seg_cache(cfg, s, batch, cache_len, dtype, window,
+                              device)
+                   for s in plan[f"{side}_segments"]]
+            for side in ("client", "server")}
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+
+def _ring_arrange(k_full, window, cache_len):
+    """Arrange prefill K/V (B, S, H, hd) into the decode cache layout.
+
+    Windowed: the last ``window`` positions in ring-slot order.  Full:
+    padded with zero rows up to ``cache_len`` so decode can append."""
+    S = k_full.shape[1]
+    if window and S > window:
+        last = k_full[:, S - window:]
+        slots = (torch.arange(window, device=k_full.device)
+                 + (S - window)) % window
+        out = torch.zeros_like(last)
+        out[:, slots] = last
+        return out
+    L = max(cache_len, S) if not window else max(window, S)
+    if L > S:
+        pad = k_full.new_zeros((k_full.shape[0], L - S) + k_full.shape[2:])
+        return torch.cat([k_full, pad], dim=1)
+    return k_full
+
+
+def run_segments_prefill(cfg, segments, seg_params, x, *, positions,
+                         window=0, gates=None, cache_len=0, kv_len=None):
+    """Like ``run_segments`` but also emits per-layer caches.
+
+    kv_len: optional (B,) int32 valid-key count per row for ragged
+    right-padded prompts, applied to every self-attention (the
+    reference's prefix ``kv_valid``).  Returns (x, caches)."""
+    per_layer: Dict[Any, Any] = {}
+
+    def stash(si, j, kv):
+        per_layer.setdefault((si, j), []).append(
+            [_ring_arrange(t, window, cache_len) for t in kv])
+
+    x = run_segments(cfg, segments, seg_params, x, positions=positions,
+                     window=window, gates=gates, kv_len=kv_len,
+                     on_layer=stash)
+    caches = [{str(j): {"mixer": {
+        name: torch.stack([kv[i] for kv in per_layer[(si, j)]])
+        for i, name in enumerate(("k", "v"))}}
+        for j in range(len(seg.body))} for si, seg in enumerate(segments)]
+    return x, caches
+
+
+def prefill(cfg: ModelConfig, params, tokens, extras=None, *, gates=None,
+            window: int = 0, dtype=None, cache_len: int = 0,
+            last_index=None):
+    """Build the cache from a prompt.  Returns (last_logits, cache).
+
+    gates: optional per-server-segment AdaSplit masks — leaves either
+    (n_rep, U) for one client shared across the batch, or (n_rep, B, U)
+    per example (``masks.expand_gates`` / ``masks.stack_client_gates``).
+
+    last_index: optional (B,) int index of each example's LAST REAL
+    token for ragged right-padded prompts: the logits are taken there,
+    and keys past it are masked out of every self-attention
+    (``kv_len = last_index + 1``), so a ragged batch prefill equals
+    prefilling each prompt alone."""
+    dtype = _dtype(cfg, dtype)
+    plan = model_plan(cfg)
+    pc, ps = params["client"], params["server"]
+    positions = _positions_for(cfg, tokens, extras)
+    x = _client_inputs(cfg, pc, tokens, extras, dtype)
+    cache_len = cache_len or tokens.shape[1] + 64
+    kv_len = None
+    if last_index is not None:
+        last_index = torch.as_tensor(last_index, device=tokens.device)
+        kv_len = (last_index + 1).to(torch.int32)
+    x, c_caches = run_segments_prefill(
+        cfg, plan["client_segments"], pc["segments"], x,
+        positions=positions, window=window, cache_len=cache_len,
+        kv_len=kv_len)
+    x, s_caches = run_segments_prefill(
+        cfg, plan["server_segments"], ps["segments"], x,
+        positions=positions, window=window, gates=gates,
+        cache_len=cache_len, kv_len=kv_len)
+    x = apply_norm(ps["final_norm"], x, cfg.norm)
+    x_last = x[:, -1:] if last_index is None else \
+        x[torch.arange(x.shape[0], device=x.device), last_index][:, None]
+    logits = unembed(ps["lm_head"], x_last)
+    logits = logits + vocab_pad_bias(cfg.vocab_size, cfg.padded_vocab(),
+                                     x.device)
+    return logits, {"client": c_caches, "server": s_caches}
+
+
+def slot_serving_ok(cfg: ModelConfig) -> bool:
+    """Whether the arch supports ragged / per-slot batches: decoder-only
+    attention stacks (SSM state folds pad tokens in irreversibly)."""
+    if cfg.is_conv:
+        return False
+    plan = model_plan(cfg)
+    return all(d.mixer == "attn"
+               for seg in plan["client_segments"] + plan["server_segments"]
+               for d in seg.body)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def decode_step(cfg: ModelConfig, params, token, cache, pos, *, gates=None,
+                window: int = 0, dtype=None):
+    """One token for the whole (composed) model.
+
+    token: (B, 1) int; pos: a scalar current position, or a (B,) tensor
+    of PER-SLOT positions (each row decodes at its own context length,
+    see ``attention.attn_decode``).  gates apply to the server segments
+    only; as in :func:`prefill`, leaves may carry a per-example B axis.
+    The cache is updated in place.  Returns (logits (B, 1, V), cache)."""
+    dtype = _dtype(cfg, dtype)
+    plan = model_plan(cfg)
+    pc, ps = params["client"], params["server"]
+    x = embed(pc["embed"], token, dtype)
+    x, c_caches = run_segments_decode(
+        cfg, plan["client_segments"], pc["segments"], x, cache["client"],
+        pos, window=window)
+    x, s_caches = run_segments_decode(
+        cfg, plan["server_segments"], ps["segments"], x, cache["server"],
+        pos, window=window, gates=gates)
+    x = apply_norm(ps["final_norm"], x, cfg.norm)
+    logits = unembed(ps["lm_head"], x)
+    logits = logits + vocab_pad_bias(cfg.vocab_size, cfg.padded_vocab(),
+                                     x.device)
+    return logits, {"client": c_caches, "server": s_caches}

@@ -1,0 +1,107 @@
+"""Shared layer primitives of the LM stack: norms, RoPE, embeddings,
+projection init (port of ``repro.models.layers``, the M-RoPE half left
+out).
+
+Layers are functions over nested dicts of tensors; initialisers draw
+from an explicit ``torch.Generator`` and create on ``gen.device``.
+Compute dtype is the caller's: params are cast at the call site.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _normal(gen, shape):
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+def dense_init(gen, d_in, d_out, scale=None, lead=()):
+    """(*lead, d_in, d_out) float32 weights, N(0, 1/d_in) by default;
+    ``lead`` stacks independent draws (the segments' n_rep axis)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return _normal(gen, tuple(lead) + (d_in, d_out)) * scale
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def norm_init(d, kind: str, lead=(), device="cuda"):
+    if kind == "rms":
+        return {"scale": torch.ones(tuple(lead) + (d,), device=device)}
+    if kind == "ln":
+        return {"scale": torch.ones(tuple(lead) + (d,), device=device),
+                "bias": torch.zeros(tuple(lead) + (d,), device=device)}
+    if kind == "nonparam_ln":
+        return {}
+    raise ValueError(kind)
+
+
+def apply_norm(params, x, kind: str, eps: float = 1e-6):
+    """float32 inside, cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    if kind == "rms":
+        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        y = y * params["scale"]
+    else:  # ln / nonparam_ln
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        if kind == "ln":
+            y = y * params["scale"] + params["bias"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device="cpu"):
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  The
+    split-halves form: (x1, x2) -> (x1 cos - x2 sin, x1 sin + x2 cos)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)
+    ang = positions[..., None].to(torch.float32) * freqs   # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embedding_init(gen, vocab_padded, d_model):
+    return {"table": _normal(gen, (vocab_padded, d_model)) * 0.02}
+
+
+def embed(params, tokens, dtype):
+    """Rows of the table, cast to ``dtype`` (gathered first: the same
+    values as casting the whole table)."""
+    return params["table"][tokens].to(dtype)
+
+
+def unembed(params, x, tied_table=None):
+    """x: (..., D) -> float32 logits (..., Vpad)."""
+    table = tied_table if tied_table is not None else params["table"]
+    return x.to(torch.float32) @ table.to(torch.float32).T
+
+
+def vocab_pad_bias(vocab_size: int, vocab_padded: int, device="cpu"):
+    """Additive logit bias masking padded vocab rows."""
+    bias = torch.zeros((vocab_padded,), dtype=torch.float32, device=device)
+    bias[vocab_size:] = -1e9
+    return bias

@@ -40,17 +40,29 @@ def tree_unflatten(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
+def _leaf_from_numpy(a, device):
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        # numpy's bf16 (ml_dtypes) has no torch counterpart: widen to
+        # float32, which is exact, and narrow again on the torch side
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
 def from_numpy(tree, device):
     """Numpy (or array-like) leaves -> torch tensors on ``device``,
-    keeping each leaf's dtype (float32 stays float32, int32 int32)."""
-    return tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device),
-        tree)
+    keeping each leaf's dtype (float32 stays float32, int32 int32,
+    bfloat16 bfloat16)."""
+    return tree_map(lambda a: _leaf_from_numpy(a, device), tree)
 
 
 def to_numpy(tree):
-    """Torch tensor leaves -> numpy arrays on the host."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """Torch tensor leaves -> numpy arrays on the host.  A bfloat16 leaf
+    comes out as float32 (exact: numpy has no bfloat16 of its own)."""
+    return tree_map(lambda t: t.detach().cpu().to(
+        torch.float32 if t.dtype == torch.bfloat16 else t.dtype).numpy(),
+        tree)
 
 
 def strict_fp32():

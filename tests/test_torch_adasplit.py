@@ -211,7 +211,12 @@ for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
-assert len(mods) >= 15, mods
+serving = ['configs.qwen2_0_5b', 'models.layers', 'models.mlp',
+           'models.attention', 'models.transformer', 'models.decode',
+           'kernels.flash_attention', 'launch', 'launch.steps',
+           'launch.serve', 'serve', 'serve.lru', 'serve.engine']
+missing = [m for m in serving if 'repro_torch.' + m not in mods]
+assert len(mods) >= 34 and not missing, (mods, missing)
 assert not bad, bad
 print(len(mods))
 """

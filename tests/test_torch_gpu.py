@@ -9,7 +9,10 @@ trainer on the CPU.  Run them there with
 Tolerances: the panel GEMM sums <= 1600 float32 products in another
 order than the plain version (1e-4 on values of order 1); the Adam
 kernel is built with -fmad=false and repeats the plain version's float32
-ops in the same order (1e-6 relative)."""
+ops in the same order (1e-6 relative); the flash kernel sums its
+float32 dots and softmax in another order than the plain version, with
+exp2 in place of exp (2e-5 absolute on outputs of order 1 in float32;
+in bfloat16 the output is rounded to 8 bits of mantissa, 2e-2)."""
 import dataclasses
 
 import numpy as np
@@ -20,6 +23,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.core.adasplit import AdaSplitHParams, AdaSplitTrainer
 from repro_torch.data.synthetic import mixed_noniid
 from repro_torch.kernels import client_conv as tcc
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import masked_adam as tma
 from repro_torch.weights import strict_fp32, tree_leaves
 
@@ -118,3 +122,68 @@ def test_trainer_iteration_on_card_matches_cpu_and_launches(cuda, mode):
         total += d.size
     assert off <= 1e-3 * total
     assert gpu.evaluate() == pytest.approx(cpu.evaluate(), abs=100 / 8)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S", [(2, 14, 2, 128), (3, 4, 4, 77),
+                                       (1, 14, 2, 1), (2, 8, 2, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,window,ragged", [
+    (True, 0, False), (True, 0, True), (False, 0, True), (True, 48, False),
+    (True, 48, True), (False, 40, True)],
+    ids=["causal", "causal-ragged", "full-ragged", "window",
+         "window-ragged", "full-window-ragged"])
+def test_flash_attention_matches_plain(cuda, B, Hq, Hkv, S, dtype, causal,
+                                       window, ragged):
+    """The kernel on (B, S, H, hd) tensors taken as transposed views, as
+    the model passes them, against its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((B, S, h, 64), device=cuda, generator=gen)
+               .to(dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+    kv_len = torch.randint(1, S + 1, (B,), device=cuda, generator=gen,
+                           dtype=torch.int32) if ragged else None
+    before = tfa.LAUNCHES["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                              kv_len=kv_len)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == (B, Hq, S, 64) and got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def test_flash_attention_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 2, 8, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_cuda(q, q, q)
+    q = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_cuda(q, q, q)
+
+
+def test_lm_prefill_and_decode_on_card_match_cpu(cuda):
+    """qwen2-0.5b reduced, float32: a ragged prefill (every layer's
+    attention one flash launch) and a per-slot decode step on the card
+    against the same on the CPU."""
+    from repro_torch.launch.steps import init_serve_params
+    from repro_torch.models import decode as dec
+    from repro_torch.weights import tree_map
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    gpu = init_serve_params(cfg, 0, "float32", device="cuda")
+    cpu = tree_map(lambda t: t.cpu(), gpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, 70)).astype(np.int32))
+    last = torch.tensor([69, 20, 45])
+    tfa.reset_launches()
+    lg, cg = dec.prefill(cfg, gpu, toks.cuda(), last_index=last.cuda())
+    assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers
+    lc, cc = dec.prefill(cfg, cpu, toks, last_index=last)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    tok = lc.argmax(-1).to(torch.int32)
+    lg, _ = dec.decode_step(cfg, gpu, tok.cuda(), cg, (last + 1).cuda())
+    lc, _ = dec.decode_step(cfg, cpu, tok, cc, last + 1)
+    assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
