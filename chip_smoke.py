@@ -10,17 +10,32 @@ time:
 1. the card's name and power limit (``nvidia-smi``); build every CUDA
    kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
 2. LeNet kernels: each at the shapes phase 4's runs give it (derived
-   from their hparams: C=32 clients, B=32, S=19 selected) against its
-   plain PyTorch version on the card, with its device time
-   (torch.profiler), the plain version's, that of one PyTorch library
-   call where one computes the same function, and the bound (bytes over
-   3.35 TB/s or FLOPs over 67 TFLOP/s fp32);
-3. one teacher-forced LeNet iteration from the same state on the card
-   and on the CPU, compared;
+   from their hparams: C=32 clients, B=32, S=19 selected, projection
+   width 64) against its plain PyTorch version on the card, with its
+   device time (torch.profiler), the plain version's, that of one
+   PyTorch library call where one computes the same function, and the
+   bound (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s fp32): the panel
+   GEMMs, masked Adam, the NT-Xent statistics (forward, and the loss's
+   gradient through them) and soft-threshold (1024x1024 in float32 and
+   bfloat16, and phase 4's split activations).  Each profile starts
+   with marker kernels that take the profiler's loss of a session's
+   first device records; one that lost more is taken again with more
+   markers, and after three the time comes from CUDA events around the
+   same loop, and the output says so;
+3. one teacher-forced LeNet iteration, and one global round on the
+   round rung, from the same state on the card and on the CPU, compared;
 4. ``AdaSplitTrainer`` on ``lenet-cifar`` at full width (C=32, B=32,
-   4 rounds), with every kernel's launch count from that run; a second,
-   shorter run with ``fused_epilogue=True`` and per-scalar masks drives
-   the bias+ReLU epilogue kernel;
+   4 rounds) on the round rung (the default), with every kernel's launch
+   count from that run; the same hparams on the eager and the epoch
+   rungs, which must select and bill alike; a shorter run with
+   ``fused_epilogue=True`` and per-scalar masks drives the bias+ReLU
+   epilogue kernel.  Each run's global-iteration wall time, the runs
+   timed in turn.  One global and one local round, and one global and
+   one local epoch, run under ``torch.cuda.set_sync_debug_mode("error")``
+   with the mode lifted only around the trainer's one fetch, so that any
+   other host sync fails the run.  Then the port's kernel API
+   (``kernels/ops.py``, the path of soft-threshold) on the main run's
+   own tensors;
 5. the flash-attention kernel at every prefill shape of phase 7's
    serving runs (derived from ``serving_runs()`` through the engine's
    own batching policy; bf16, causal, kv_len where ragged) and at
@@ -35,7 +50,8 @@ time:
    prompt 512, 32 new tokens) and ``ServeEngine`` on 16 ragged requests
    from 4 clients with mixed (gated) and per-client (folded) batches;
    the flash launches of each run must be 24 per prefill;
-8. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+8. a ``kernels`` JSON line (all six kernels), then the final
+   ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the repository around it, and imports nothing
 of JAX or of the JAX package.
@@ -67,18 +83,32 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # card vs CPU, qwen2-0.5b at full width, 2 layers, strict fp32: other
 # summation orders in f32 GEMMs of width <= 4864
 LM_REL_TOL = 1e-4
+# NT-Xent statistics against their plain version: f32 dots of D terms and
+# f32 sums of B terms in another order, relative to the largest magnitude
+NTXENT_TOL = 1e-5
 
 
 def trainer_runs():
-    """Phase 4's trainer runs by label: the main run, and a shorter one
-    with the bias+ReLU epilogue and per-scalar masks.  Phase 2 checks
-    every kernel at the shapes these runs give it."""
+    """Phase 4's trainer runs by label: the main run on the round rung
+    (the default), the same hparams on the eager and the epoch rung (one
+    round per staged chunk), and a shorter run with the bias+ReLU
+    epilogue and per-scalar masks.  Phase 2 checks every kernel at the
+    shapes these runs give it."""
     import dataclasses
     from repro_torch.core.adasplit import AdaSplitHParams
     main = AdaSplitHParams(rounds=4, kappa=0.5, eta=0.6, batch_size=32)
     return {"main": main,
+            "eager": dataclasses.replace(main, round_scan=False),
+            "epoch": dataclasses.replace(main, epoch_scan=True,
+                                         epoch_chunk_rounds=1),
             "fused_epilogue+per_scalar": dataclasses.replace(
                 main, rounds=2, mask_mode="per_scalar", fused_epilogue=True)}
+
+
+def rung(hp) -> str:
+    if hp.round_scan and hp.epoch_scan:
+        return "epoch"
+    return "round" if hp.round_scan else "eager"
 
 
 def fail(msg: str) -> int:
@@ -103,35 +133,93 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(prof):
+# On an H100, once the trainer runs had gone, each torch.profiler
+# session lost the first few device records it should have held: the
+# first one or two kernels of a ten-launch loop, however long the
+# session first waited, and once every one of the ten.  So a session
+# starts with marker kernels (``torch.cuda._sleep``'s) that take that
+# loss: it is sound when some marker was recorded, so that the loss
+# ended before the work, and is taken again with more markers when
+# not.
+PROFILE_MARKERS = (64, 1024, 16384)
+MARKER = "spin_kernel"
+MARKERS_LOST = {"sessions": 0, "lossy": 0, "most": 0}
+
+
+def tally_markers(n_markers: int, markers: int):
+    lost = n_markers - markers
+    MARKERS_LOST["sessions"] += 1
+    MARKERS_LOST["lossy"] += lost > 0
+    MARKERS_LOST["most"] = max(MARKERS_LOST["most"], lost)
+
+
+@contextlib.contextmanager
+def primed_profile(n_markers: int):
+    """A torch.profiler session over CPU and CUDA whose first device
+    work is ``n_markers`` marker kernels, finished before the body
+    runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_markers):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def device_records(prof):
     """(name, device us, count) of the device-side events of a
-    torch.profiler run (kernels, copies, fills): a CPU op's self device
-    time would repeat the time of the kernels it launched."""
+    torch.profiler run (kernels, copies, fills), the markers apart: a
+    CPU op's self device time would repeat the time of the kernels it
+    launched.  Returns them with the number of markers recorded."""
     import torch
     dev = [(e.key, getattr(e, "self_device_time_total", None)
             or getattr(e, "self_cuda_time_total", 0.0), e.count)
            for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
-    return [d for d in dev if d[1] > 0]
+    markers = sum(d[2] for d in dev if MARKER in d[0])
+    return [d for d in dev if d[1] > 0 and MARKER not in d[0]], markers
 
 
 def device_ms(fn, iters: int) -> float:
     """Device ms per call of ``fn``: the summed duration of the device
     work that ``iters`` calls issue (torch.profiler), after a warm-up.
-    Gaps between launches are not counted."""
+    Gaps between launches are not counted.
+
+    Every ``fn`` here launches at least one kernel per call on one
+    stream, so a session is sound only if some of its markers were
+    recorded, and besides them at least ``iters`` device ops whose summed
+    time fits inside the CUDA-event time of the same loop.  A session
+    that is not sound is taken again with more markers; after the last,
+    the time is the CUDA-event time of its loop (launch gaps included),
+    and the output says so."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(d[1] for d in device_events(prof))
-    if not busy > 0:
-        raise AssertionError("the profiler recorded no device time")
-    return busy / iters / 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for n_markers in PROFILE_MARKERS:
+        with primed_profile(n_markers) as prof:
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        dev, markers = device_records(prof)
+        tally_markers(n_markers, markers)
+        busy_ms = sum(d[1] for d in dev) / 1e3
+        ops = sum(d[2] for d in dev)
+        event_ms = start.elapsed_time(end)
+        if markers > 0 and ops >= iters \
+                and 0 < busy_ms <= event_ms * 1.05 + 0.01:
+            return busy_ms / iters
+        print(f"  profile with {n_markers} markers ({markers} recorded): "
+              f"{ops} device ops, {busy_ms} ms device time for {iters} "
+              f"calls taking {event_ms} ms between CUDA events: not sound")
+    print(f"  timed with CUDA events instead: {event_ms / iters} ms/call "
+          "(launch gaps included)")
+    return event_ms / iters
 
 
 def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
@@ -336,8 +424,107 @@ def check_adam(cfg, hp, gen, label):
     return tot
 
 
+def check_ntxent(cfg, hp, gen):
+    """The NT-Xent statistics at the client step's (C, B, D) against
+    their plain version, and the loss's gradient through the kernel
+    against the same loss on the CPU (plain statistics); one library call
+    computes no such statistics, so there is no library time."""
+    import torch
+    from repro_torch.kernels import ntxent as nt
+    C, B, D = N_CLIENTS, hp.batch_size, hp.proj_dim
+    raw = torch.randn((C, B, D), device="cuda", generator=gen)
+    q = raw / (torch.linalg.vector_norm(raw, dim=-1, keepdim=True) + 1e-8)
+    y = torch.randint(0, cfg.n_classes, (C, B), device="cuda",
+                      generator=gen, dtype=torch.int32)
+    got = nt.ntxent_stats_cuda(q, y, hp.tau)
+    want = nt.ntxent_stats_plain(q, y, hp.tau)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    scale = max(1.0, max(float(b.abs().max()) for b in want))
+    if not err <= NTXENT_TOL * scale:
+        raise AssertionError(f"ntxent_stats: max abs err {err}")
+    qg = raw.clone().requires_grad_(True)
+    nt.ntxent_loss(qg, y, hp.tau).sum().backward()
+    qc = raw.cpu().requires_grad_(True)
+    nt.ntxent_loss(qc, y.cpu(), hp.tau).sum().backward()
+    g_err = float((qg.grad.cpu() - qc.grad).abs().max())
+    g_scale = float(qc.grad.abs().max())
+    if not g_err <= NTXENT_TOL * g_scale:
+        raise AssertionError(f"ntxent_loss gradient: max abs err {g_err}")
+    ms = device_ms(lambda: nt.ntxent_stats_cuda(q, y, hp.tau), 20)
+    plain_ms = device_ms(lambda: nt.ntxent_stats_plain(q, y, hp.tau), 20)
+    nbytes = 4.0 * (C * B * D + C * B + 3 * C * B)
+    flops = 2.0 * C * B * B * D
+    bms, by = bound(nbytes, flops)
+    print(f"  ntxent_stats C={C} B={B} D={D} tau={hp.tau}: max_abs_err="
+          f"{err:.3e} (tol {NTXENT_TOL} x {scale:.3g}) loss gradient "
+          f"through the kernel vs CPU max_abs_err={g_err:.3e} (of "
+          f"{g_scale:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bms:.6f} ({by}) library: none computes the three "
+          "statistics")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "bytes": nbytes, "flops": flops,
+            "max_abs_err": err}
+
+
+def soft_threshold_cases(cfg, hp):
+    """(label, shape, dtype, t) of the soft-threshold checks: a
+    1024x1024 panel in float32 and bfloat16 (the reference benchmark's
+    shape), and one client step's split activations of the runs with
+    ``hp`` at its payload threshold -- what phase 4 hands
+    ``ops.soft_threshold``."""
+    import torch
+    from repro_torch.models import lenet
+    s = lenet.split_index(cfg)
+    hw = cfg.image_size // 2 ** s
+    acts = (N_CLIENTS, hp.batch_size, hw, hw, cfg.conv_channels[s - 1])
+    return [("panel f32", (1024, 1024), torch.float32, 0.1),
+            ("panel bf16", (1024, 1024), torch.bfloat16, 0.1),
+            ("split acts f32", acts, torch.float32, hp.act_threshold)]
+
+
+def check_soft_threshold(cfg, hp, gen):
+    """Soft-threshold against its plain version (bit-equal), with
+    ``torch.nn.functional.softshrink`` (the same function in one call)
+    as the library yardstick.  Totals are over the three cases."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import soft_threshold as st
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0}
+    for label, shape, dtype, t in soft_threshold_cases(cfg, hp):
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        got = st.soft_threshold_cuda(x, t)
+        want = st.soft_threshold_plain(x, t)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"soft_threshold {label}: not bit-equal "
+                                 f"to its plain version (max {err})")
+        lib_err = float((F.softshrink(x, t).float() - want.float())
+                        .abs().max())
+        ms = device_ms(lambda: st.soft_threshold_cuda(x, t), 20)
+        plain_ms = device_ms(lambda: st.soft_threshold_plain(x, t), 10)
+        lib_ms = device_ms(lambda: F.softshrink(x, t), 20)
+        nbytes = 2.0 * x.numel() * x.element_size()
+        flops = 4.0 * x.numel()
+        bms, by = bound(nbytes, flops)
+        print(f"  soft_threshold {label} {tuple(shape)} t={t}: "
+              f"max_abs_err={err:.3e} (bit-equal) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} softshrink_ms={lib_ms:.4f} "
+              f"(max_abs_err vs plain {lib_err:.3e}) bound_ms={bms:.4f} "
+              f"({by}) ratio={ms / bms:.1f}x")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", bms),
+                         ("bytes", nbytes), ("flops", flops)):
+            tot[key] += val
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        del x, got, want
+    return tot
+
+
 # ---------------------------------------------------------------------------
-# phase 3: one teacher-forced iteration, card against CPU
+# phase 3: one teacher-forced iteration and one round, card against CPU
 # ---------------------------------------------------------------------------
 
 
@@ -367,10 +554,25 @@ def iteration_on_two_devices(cfg, main_hp):
         raise AssertionError(f"selections differ: {sg} vs {sc}")
     ce_err = float(np.max(np.abs(cg - cc_) / np.abs(cc_)))
     cl_err = float(np.max(np.abs(lg - lc) / np.abs(lc)))
-    # Adam's first step is lr * sign(g): an element whose gradient is
-    # ~0 may flip sign between two summation orders, moving by <= 2*lr
+    worst, flips, total = state_diff(stg, stc)
+    print(f"  iteration: selection={sg.tolist()} ce_rel_err={ce_err:.3e} "
+          f"client_loss_rel_err={cl_err:.3e} state_max_abs_diff={worst:.3e} "
+          f"state_elements_off={flips}/{total}")
+    if not (ce_err < 1e-4 and cl_err < 1e-4 and worst <= 2.5 * hp.lr
+            and flips <= 1e-3 * total):
+        raise AssertionError("card and CPU iterations disagree")
+
+
+def state_diff(a_state, b_state):
+    """(max abs difference, elements off by more than 1e-5 + 1e-4 |b|,
+    elements) over the float leaves of two state trees; integer leaves
+    must be equal.  Adam's early steps are ~lr * sign(g): an element
+    whose gradient is ~0 may flip sign between two summation orders and
+    move by <= 2*lr per step."""
+    import numpy as np
+    from repro_torch.weights import tree_leaves
     worst, flips, total = 0.0, 0, 0
-    for a, b in zip(tree_leaves(stg), tree_leaves(stc)):
+    for a, b in zip(tree_leaves(a_state), tree_leaves(b_state)):
         if a.dtype.kind != "f":
             if not np.array_equal(a, b):
                 raise AssertionError("integer state differs")
@@ -379,12 +581,50 @@ def iteration_on_two_devices(cfg, main_hp):
         worst = max(worst, float(d.max()) if d.size else 0.0)
         flips += int(np.sum(d > 1e-5 + 1e-4 * np.abs(b)))
         total += d.size
-    print(f"  selection={sg.tolist()} ce_rel_err={ce_err:.3e} "
-          f"client_loss_rel_err={cl_err:.3e} state_max_abs_diff={worst:.3e} "
+    return worst, flips, total
+
+
+def fixed_iters(clients, B, T):
+    """Per-client lists of T fixed (x, y) batches: a round's data that
+    every trainer and device can be handed alike."""
+    return [[(c.x[t * B:(t + 1) * B], c.y[t * B:(t + 1) * B])
+             for t in range(T)] for c in clients]
+
+
+def round_on_two_devices(cfg, main_hp):
+    """One global round (T=2 iterations) of the main run's hparams on the
+    round rung, act_l1 on, over 8 clients, from one state on the card and
+    on the CPU: equal selections, CE to 1e-4, state within the Adam
+    sign-flip bound for T steps."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.adasplit import AdaSplitTrainer
+    from repro_torch.data.synthetic import mixed_noniid
+    hp = dataclasses.replace(main_hp, rounds=1, act_l1=1e-4)
+    T, B = 2, hp.batch_size
+    clients = mixed_noniid(8, n_per_client=T * B, n_test=8, seed=4)
+    gpu = AdaSplitTrainer(cfg, hp, clients, device="cuda")
+    cpu = AdaSplitTrainer(cfg, hp, clients, device="cpu")
+    assert rung(hp) == "round"
+    cpu.set_state(gpu.get_state())
+    iters = fixed_iters(clients, B, T)
+    for tr in (gpu, cpu):
+        tr.orch.new_round()
+        tr._run_round_scan(iters, T, True)
+    sel_g, sel_c = gpu.orch.S[:, 2:], cpu.orch.S[:, 2:]
+    if not np.array_equal(sel_g, sel_c):
+        raise AssertionError(f"round selections differ: {sel_g} vs {sel_c}")
+    on = sel_c > 0
+    ce_g, ce_c = gpu.orch.L[:, 2:][on], cpu.orch.L[:, 2:][on]
+    ce_err = float(np.max(np.abs(ce_g - ce_c) / np.abs(ce_c)))
+    worst, flips, total = state_diff(gpu.get_state(), cpu.get_state())
+    print(f"  global round on the round rung, T={T}: selections "
+          f"{[np.flatnonzero(sel_c[:, t]).tolist() for t in range(T)]} "
+          f"equal; ce_rel_err={ce_err:.3e} state_max_abs_diff={worst:.3e} "
           f"state_elements_off={flips}/{total}")
-    if not (ce_err < 1e-4 and cl_err < 1e-4 and worst <= 2.5 * hp.lr
+    if not (ce_err < 1e-4 and worst <= 2.5 * hp.lr * T
             and flips <= 1e-3 * total):
-        raise AssertionError("card and CPU iterations disagree")
+        raise AssertionError("card and CPU rounds disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -392,32 +632,90 @@ def iteration_on_two_devices(cfg, main_hp):
 # ---------------------------------------------------------------------------
 
 
+LAUNCH_MODULES = ("client_conv", "masked_adam", "ntxent", "soft_threshold")
+
+
+def reset_launches():
+    import importlib
+    for m in LAUNCH_MODULES:
+        importlib.import_module(f"repro_torch.kernels.{m}").reset_launches()
+
+
+def read_launches():
+    import importlib
+    out = {}
+    for m in LAUNCH_MODULES:
+        out.update(importlib.import_module(f"repro_torch.kernels.{m}")
+                   .LAUNCHES)
+    return out
+
+
+def log_selections(orch):
+    """Record every selection the orchestrator is handed, on any rung
+    (``update`` eagerly, ``ingest_round`` from the rungs' fetches)."""
+    import numpy as np
+    log = []
+    update, ingest = orch.update, orch.ingest_round
+
+    def logged_update(selected, losses):
+        log.append(np.array(selected))
+        update(selected, losses)
+
+    def logged_ingest(sel_idx, losses, state=None):
+        log.extend(np.array(sel_idx))
+        ingest(sel_idx, losses, state=state)
+    orch.update, orch.ingest_round = logged_update, logged_ingest
+    return log
+
+
+def one_round(tr, iters, global_phase=True, n_rounds=1):
+    """A callable running ``n_rounds`` rounds of ``iters`` on ``tr``'s
+    rung: T eager iterations per round, round-rung rounds, or one epoch
+    of ``n_rounds`` rounds."""
+    T = min(len(it) for it in iters)
+    if rung(tr.hp) == "epoch":
+        return lambda: tr._run_epoch_scan([iters] * n_rounds, T,
+                                          global_phase)
+    run = tr._run_round_scan if rung(tr.hp) == "round" \
+        else tr._run_round_eager
+
+    def rounds():
+        for _ in range(n_rounds):
+            tr.orch.new_round()
+            run(iters, T, global_phase)
+    return rounds
+
+
 def run_trainer(cfg, hp, clients, label):
-    """Train, evaluate and bill one run; then one more global iteration,
-    whose launches must be the GEMMs and Adam leaves phase 2 checked,
-    its wall time, and its profile.  Returns the run's launch counts."""
+    """Train, evaluate and bill one run on its rung; the NT-Xent kernel
+    must have launched once per client step.  Then one more global round,
+    whose launches must be T times the GEMMs and Adam leaves phase 2
+    checked, its wall time per iteration, and its profile.  Returns the
+    run's launch counts and a snapshot of its state, meter and
+    selections right after training."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.core.adasplit import AdaSplitTrainer
-    from repro_torch.kernels import client_conv as cc
-    from repro_torch.kernels import masked_adam as ma
     tr = AdaSplitTrainer(cfg, hp, clients, device="cuda")
+    selections = log_selections(tr.orch)
     torch.cuda.synchronize()
-    cc.reset_launches()
-    ma.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     hist = tr.train(eval_every=2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**cc.LAUNCHES, **ma.LAUNCHES}
+    launches = read_launches()
+    snap = {"state": tr.get_state(), "meter": dataclasses.replace(tr.meter),
+            "selections": list(selections)}
     T = len(clients[0].x) // hp.batch_size
     for rec in hist:
         print(f"  [{label}] " + json.dumps(rec))
     acc = tr.evaluate()
     c3 = tr.c3(max(tr.meter.bandwidth_gb, 1e-12),
                max(tr.meter.client_tflops, 1e-12))
-    print(f"  [{label}] accuracy={acc} c3(own totals as budgets)={c3} "
-          f"meter={json.dumps(tr.meter.summary())}")
+    print(f"  [{label}] rung={rung(hp)} accuracy={acc} c3(own totals as "
+          f"budgets)={c3} meter={json.dumps(tr.meter.summary())}")
     print(f"  [{label}] iterations={hp.rounds * T} wall_s={wall} "
           f"steps_per_s={hp.rounds * T / wall} (evaluation included) "
           f"launches={json.dumps(launches)}")
@@ -425,54 +723,213 @@ def run_trainer(cfg, hp, clients, label):
               if v is not None]
     if not all(np.isfinite(losses)) or not np.isfinite(acc):
         raise AssertionError(f"[{label}] non-finite loss or accuracy")
+    if launches["ntxent_stats"] != hp.rounds * T:
+        raise AssertionError(f"[{label}] {launches['ntxent_stats']} NT-Xent "
+                             f"launches for {hp.rounds * T} client steps")
 
-    # one more global iteration: its launches, its time, and a profile
-    xs = np.stack([c.x[:hp.batch_size] for c in clients])
-    ys = np.stack([c.y[:hp.batch_size] for c in clients])
-    cc.reset_launches()
-    ma.reset_launches()
-    tr.train_iteration(xs, ys, global_phase=True)
-    per_it = {**cc.LAUNCHES, **ma.LAUNCHES}
-    print(f"  [{label}] launches per global iteration: {json.dumps(per_it)}")
+    # one more global round on the run's rung: launches, time, profile
+    run = one_round(tr, fixed_iters(clients, hp.batch_size, T))
+    reset_launches()
+    run()
+    per_round = read_launches()
+    print(f"  [{label}] launches per global round of {T} iterations: "
+          f"{json.dumps(per_round)}")
     gemm = "panel_gemm_bias_relu" if hp.fused_epilogue else "panel_gemm"
-    if (per_it[gemm], per_it["masked_adam"]) != (
-            len(gemm_shapes(cfg, hp)), len(adam_leaves(cfg, hp))):
-        raise AssertionError(f"[{label}] the path launched other GEMMs or "
-                             "Adam leaves than phase 2 checked")
-    n_it = 5
+    if (per_round[gemm], per_round["masked_adam"],
+            per_round["ntxent_stats"]) != (
+            T * len(gemm_shapes(cfg, hp)), T * len(adam_leaves(cfg, hp)), T):
+        raise AssertionError(f"[{label}] the path launched other kernels "
+                             "than phase 2 checked")
+    profile_calls(run, 2, label, f"global rounds ({T} iterations each)",
+                  "round")
+    return launches, tr, snap
+
+
+def time_rungs(results, clients, repeats=7):
+    """Global-iteration wall time of each run's rung (host clock around
+    one synchronised global round, divided by its T iterations), the runs
+    taken in turn ``repeats`` times so that drift of the host hits them
+    alike; prints the median and the spread."""
+    import numpy as np
+    import torch
+    runs = {}
+    for label, (_, tr, _) in results.items():
+        T = len(clients[0].x) // tr.hp.batch_size
+        runs[label] = (one_round(tr, fixed_iters(clients, tr.hp.batch_size,
+                                                 T)), T)
+    ms = {label: [] for label in runs}
+    for i in range(repeats):
+        order = list(runs)[i % len(runs):] + list(runs)[:i % len(runs)]
+        for label in order:
+            run, T = runs[label]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) * 1e3 / T)
+    for label, v in ms.items():
+        med = float(np.median(v))
+        print(f"  [{label}] rung={rung(results[label][1].hp)} global "
+              f"iteration wall ms (host clock, synced; median of "
+              f"{repeats} rounds taken in turn with the other runs): {med} "
+              f"(min {min(v)}, max {max(v)}) steps_per_s={1e3 / med}")
+
+
+def compare_rungs(results):
+    """The main run (round rung) against the same hparams on the eager
+    and the epoch rung: equal selections and Meter totals, and the state
+    difference (the rungs run the same ops in the same order)."""
+    import numpy as np
+    from repro_torch.weights import tree_leaves
+    base = results["main"][2]
+    for label in ("eager", "epoch"):
+        other = results[label][2]
+        same_sel = len(other["selections"]) == len(base["selections"]) and \
+            all(np.array_equal(a, b) for a, b in zip(other["selections"],
+                                                     base["selections"]))
+        meter = {f: (getattr(other["meter"], f), getattr(base["meter"], f))
+                 for f in ("bandwidth_bytes", "client_flops", "server_flops",
+                           "host_device_bytes", "interconnect_bytes")}
+        same_meter = all(a == b for a, b in meter.values())
+        worst = max((float(np.abs(a.astype(np.float64) - b).max())
+                     for a, b in zip(tree_leaves(other["state"]),
+                                     tree_leaves(base["state"])) if a.size),
+                    default=0.0)
+        print(f"  rungs: {label} vs round: {len(base['selections'])} "
+              f"selections equal={same_sel} meter totals equal={same_meter} "
+              f"state max abs diff={worst:.3e} (expected 0)")
+        if not (same_sel and same_meter):
+            raise AssertionError(f"the {label} rung selected or billed "
+                                 "otherwise than the round rung")
+
+
+def fetches_under_sync_check(tr, fn):
+    """Run ``fn`` with ``torch.cuda.set_sync_debug_mode("error")``, the
+    mode lifted only inside the trainer's one fetch point, so that any
+    other host sync raises; returns the fetches made."""
+    import torch
+    fetch, n = tr._fetch, [0]
+
+    def lifted(tensors):
+        n[0] += 1
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return fetch(tensors)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+    tr._fetch = lifted
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_it):
-        tr.train_iteration(xs, ys, global_phase=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del tr._fetch
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / n_it * 1e3
-    print(f"  [{label}] global iteration wall ms (host clock, synced): "
-          f"{step_ms}")
-    profile_iterations(tr, xs, ys, label)
+    return n[0]
+
+
+def check_syncs(results, clients):
+    """One global and one local round on the round rung, one global and
+    one local epoch of two rounds on the epoch rung (one round per
+    chunk, so the side-stream ring turns): one fetch per global round or
+    epoch, none in a local one, and no other host sync."""
+    for label, n_rounds in (("main", 1), ("epoch", 2)):
+        tr = results[label][1]
+        T = len(clients[0].x) // tr.hp.batch_size
+        iters = fixed_iters(clients, tr.hp.batch_size, T)
+        for phase, want in ((True, 1), (False, 0)):
+            got = fetches_under_sync_check(
+                tr, one_round(tr, iters, phase, n_rounds))
+            what = ("global" if phase else "local") + \
+                (" epoch" if rung(tr.hp) == "epoch" else " round")
+            print(f"  [{label}] one {what} ({n_rounds} round(s) of {T}) "
+                  f"under sync_debug_mode=error: {got} fetch(es), no other "
+                  "host sync")
+            if got != want:
+                raise AssertionError(f"[{label}] {got} fetches in a {what}")
+
+
+def kernel_api(cfg, tr, clients, hp):
+    """The port's public kernel API (``kernels/ops.py``) on the main
+    run's own tensors: soft-threshold on one client step's split
+    activations at the payload threshold, NT-Xent on their projections,
+    one client conv and one masked Adam step, each against its plain
+    version.  Returns the launches of these calls."""
+    import numpy as np
+    import torch
+    from repro_torch.core.losses import ntxent_supervised
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import soft_threshold as st
+    from repro_torch.kernels.client_conv import client_proj
+    from repro_torch.models import lenet
+    B = hp.batch_size
+    xs = torch.from_numpy(np.stack([c.x[:B] for c in clients])).cuda()
+    ys = torch.from_numpy(np.stack([c.y[:B] for c in clients])).cuda()
+    w = tr.client_params["blocks"][0]["w"]
+    leaf = tr.server_params["fc1"]["w"]
+    g = torch.full_like(leaf, 1e-3)
+    mask = (torch.arange(leaf.numel(), device="cuda") % 3 > 0).to(
+        leaf.dtype).reshape(leaf.shape)
+    zero = torch.zeros_like(leaf)
+    step = torch.tensor(1, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        acts = lenet.client_forward(cfg, tr.client_params, xs)
+        q = client_proj(tr.proj_params, acts.reshape(acts.shape[:2] + (-1,)))
+        reset_launches()
+        shrunk = ops.soft_threshold(acts, hp.act_threshold)
+        loss = ops.ntxent_loss(q, ys, hp.tau)
+        conv = ops.client_conv(xs, w)
+        adam = ops.masked_adam(leaf, g, zero, zero, mask, step, lr=hp.lr)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want_loss = ntxent_supervised(q, ys, hp.tau)
+        want_conv = ops.client_conv(xs.cpu(), w.cpu())
+        want_adam = ops.masked_adam(leaf.cpu(), g.cpu(), zero.cpu(),
+                                    zero.cpu(), mask.cpu(), step.cpu(),
+                                    lr=hp.lr)
+    errs = {
+        "soft_threshold": float((shrunk - st.soft_threshold_plain(
+            acts, hp.act_threshold)).abs().max()),
+        "ntxent_loss": float(((loss - want_loss).abs()
+                              / want_loss.abs()).max()),
+        "client_conv": float((conv.cpu() - want_conv).abs().max()),
+        "masked_adam": max(float((a.cpu() - b).abs().max())
+                           for a, b in zip(adam, want_adam))}
+    print(f"  kernels/ops.py on the main run's tensors (split activations "
+          f"{tuple(acts.shape)}, projections {tuple(q.shape)}): "
+          f"launches={json.dumps(launches)} errors vs plain "
+          f"{json.dumps(errs)}")
+    if not (errs["soft_threshold"] == 0.0 and errs["ntxent_loss"] < 1e-4
+            and errs["client_conv"] <= GEMM_TOL
+            and errs["masked_adam"] <= ADAM_TOL):
+        raise AssertionError("kernels/ops.py disagrees with the plain "
+                             "versions")
+    if not all(launches[k] > 0 for k in ("soft_threshold", "ntxent_stats",
+                                         "panel_gemm", "masked_adam")):
+        raise AssertionError(f"kernels/ops.py missed a kernel: {launches}")
     return launches
-
-
-def profile_iterations(tr, xs, ys, label):
-    """Device time by kernel over 3 global iterations, and the device's
-    busy share of the wall time (torch.profiler)."""
-    profile_calls(lambda: tr.train_iteration(xs, ys, global_phase=True), 3,
-                  label, "global iterations", "iter")
 
 
 def profile_calls(fn, n, label, what, unit):
     """Device time by kernel over ``n`` calls of ``fn``, and the device's
-    busy share of their wall time (torch.profiler)."""
+    busy share of their wall time (torch.profiler; a session that
+    recorded none of its markers is taken again with more)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
+    for n_markers in PROFILE_MARKERS:
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = device_events(prof)
+        with primed_profile(n_markers) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev, markers = device_records(prof)
+        tally_markers(n_markers, markers)
+        if markers > 0:
+            break
+        print(f"  [{label}] profile with {n_markers} markers: {markers} "
+              "recorded")
     busy = sum(d[1] for d in dev)
     if not dev:
         print(f"  [{label}] profile: no device time recorded (not measured)")
@@ -480,7 +937,8 @@ def profile_calls(fn, n, label, what, unit):
     print(f"  [{label}] profile over {n} {what}: wall "
           f"{wall_us / n / 1e3:.3f} ms/{unit}, device busy "
           f"{busy / n / 1e3:.3f} ms/{unit}, busy share {busy / wall_us:.4f}, "
-          f"{sum(d[2] for d in dev) // n} device ops/{unit}")
+          f"{sum(d[2] for d in dev) // n} device ops/{unit} "
+          f"({n_markers - markers} of {n_markers} markers lost)")
     for key, us, count in sorted(dev, key=lambda d: -d[1])[:12]:
         print(f"    {us / n / 1e3:9.4f} ms/{unit} {count // n:5d} "
               f"calls/{unit}  {key[:90]}")
@@ -822,25 +1280,36 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     gemm = check_gemm(cfg, runs["main"], gen)
     fused = check_gemm(cfg, runs["fused_epilogue+per_scalar"], gen)
-    adam = {label: check_adam(cfg, hp, gen, label)
-            for label, hp in runs.items()}
+    adam = {label: check_adam(cfg, runs[label], gen, label)
+            for label in ("main", "fused_epilogue+per_scalar")}
+    ntxent = check_ntxent(cfg, runs["main"], gen)
+    soft = check_soft_threshold(cfg, runs["main"], gen)
     phase_done(2)
 
     # phase 3 ---------------------------------------------------------
-    print("phase 3: one iteration on the card and on the CPU")
+    print("phase 3: one iteration and one round on the card and on the CPU")
     iteration_on_two_devices(cfg, runs["main"])
+    round_on_two_devices(cfg, runs["main"])
     phase_done(3)
 
     # phase 4 ---------------------------------------------------------
     from repro_torch.data.synthetic import mixed_noniid
     print(f"phase 4: AdaSplitTrainer on lenet-cifar, C={N_CLIENTS}")
     clients = mixed_noniid(N_CLIENTS, n_per_client=128, n_test=64)
-    counts = {label: run_trainer(cfg, hp, clients, label)
-              for label, hp in runs.items()}
+    results = {label: run_trainer(cfg, hp, clients, label)
+               for label, hp in runs.items()}
+    compare_rungs(results)
+    time_rungs(results, clients)
+    check_syncs(results, clients)
+    api = kernel_api(cfg, results["main"][1], clients, runs["main"])
+    counts = {label: r[0] for label, r in results.items()}
     launches = {"panel_gemm": counts["main"]["panel_gemm"],
                 "panel_gemm_bias_relu":
                     counts["fused_epilogue+per_scalar"]["panel_gemm_bias_relu"],
-                "masked_adam": counts["main"]["masked_adam"]}
+                "masked_adam": counts["main"]["masked_adam"],
+                "ntxent_stats": counts["main"]["ntxent_stats"],
+                "soft_threshold": api["soft_threshold"]}
+    del results
     phase_done(4)
 
     # phase 5 ---------------------------------------------------------
@@ -883,6 +1352,10 @@ def main() -> int:
              "src/repro/kernels/client_conv.py:185"),
             ("masked_adam", adam["main"], src + "masked_adam.cu",
              "src/repro/kernels/masked_adam.py:36"),
+            ("ntxent_stats", ntxent, src + "ntxent.cu",
+             "src/repro/kernels/ntxent.py:60"),
+            ("soft_threshold", soft, src + "soft_threshold.cu",
+             "src/repro/kernels/soft_threshold.py:23"),
             ("flash_attention", flash, src + "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:74")):
         rows.append({"name": name, "route": "cuda", "source": source,
@@ -893,6 +1366,8 @@ def main() -> int:
                      "bound_by": tot.get("bound_by") or bound(
                          tot["bytes"], tot["flops"])[1],
                      "library_ms": tot["library_ms"]})
+    print(f"profiler sessions: {json.dumps(MARKERS_LOST)} (lossy: those "
+          "that lost leading device records; most: the most lost in one)")
     print(f"total wall: {time.perf_counter() - t_run:.2f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

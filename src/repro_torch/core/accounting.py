@@ -107,6 +107,50 @@ class Meter:
     def add_host_device(self, nbytes: float):
         self.host_device_bytes += nbytes
 
+    def ingest_round(self, *, acts_shape, batch, n_clients, n_iters,
+                     client_flops_per_example, server_flops_per_example,
+                     nnz_fracs=None, n_selected=None, grad_down=False,
+                     dtype_bytes=4, interconnect_bytes=0.0,
+                     host_device_bytes=0.0):
+        """Bill a whole round after the rung's one device fetch, with
+        totals equal bit for bit to the eager per-event billing (every
+        addend is an integer-valued float, so the order does not matter).
+
+        nnz_fracs: optional (n_iters, k) per-selected-client payload nnz
+        fractions (activation sparsification on); ``n_selected`` (k) is
+        required when it is None.  ``interconnect_bytes`` and
+        ``host_device_bytes`` are the round's analytic totals."""
+        if nnz_fracs is not None:
+            nnz_fracs = np.asarray(nnz_fracs)
+            n_selected = nnz_fracs.shape[-1]
+        assert n_selected is not None
+        fwd_bwd = 3  # fwd + 2x bwd
+        self.add_client_flops(fwd_bwd * client_flops_per_example
+                              * n_clients * batch * n_iters)
+        self.add_payload(batch_payload_bytes(
+            acts_shape, batch, count=n_iters * n_selected,
+            nnz_fracs=nnz_fracs, grad_down=grad_down,
+            dtype_bytes=dtype_bytes))
+        self.add_server_flops(fwd_bwd * server_flops_per_example
+                              * batch * n_iters * n_selected)
+        if interconnect_bytes:
+            self.add_interconnect(interconnect_bytes)
+        if host_device_bytes:
+            self.add_host_device(host_device_bytes)
+
+    def ingest_epoch(self, *, n_rounds, nnz_fracs=None, **round_kw):
+        """Bill an epoch of ``n_rounds`` rounds after one fetch: that many
+        :meth:`ingest_round` calls (nnz_fracs (n_rounds, n_iters, k) when
+        given; every other argument per round).  Returns the cumulative
+        summary after each round, for the per-round history records."""
+        summaries = []
+        for r in range(n_rounds):
+            self.ingest_round(
+                nnz_fracs=nnz_fracs[r] if nnz_fracs is not None else None,
+                **round_kw)
+            summaries.append(self.summary())
+        return summaries
+
     @property
     def bandwidth_gb(self) -> float:
         return self.bandwidth_bytes / 1e9

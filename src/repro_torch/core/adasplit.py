@@ -1,13 +1,14 @@
-"""The AdaSplit training protocol (paper §3), classification form, on the
-eager rung — port of ``repro.core.adasplit`` with ``round_scan=False``,
-``global_batch=True``, client state resident on one device.
+"""The AdaSplit training protocol (paper §3), classification form — port
+of ``repro.core.adasplit`` with ``global_batch=True`` and client state
+resident on one device, on its three dispatch rungs.
 
 Each iteration:
 
 1. the client step runs all C clients as ONE stacked forward (the
    reference's ``vmap``): LeNet client tower -> projection head ->
-   supervised NT-Xent (eq. 5) -> plain Adam.  The loss is the sum of the
-   C per-client losses; clients share no parameters, so each client's
+   supervised NT-Xent (eq. 5, the ``ntxent_stats`` kernel, one launch
+   for all C clients) -> plain Adam.  The loss is the sum of the C
+   per-client losses; clients share no parameters, so each client's
    rows of the gradient are its own loss's gradient;
 2. in the global phase, UCB selects eta*N clients (eq. 6);
 3. one batched global step over the S selected clients: server CE +
@@ -16,6 +17,23 @@ Each iteration:
    ``masked_adam`` kernel on the card;
 4. the UCB state is updated and ``Meter`` bills bandwidth and compute
    (eq. 1-2).
+
+The rungs run the same torch ops in the same order and differ only in
+when the host waits for the device:
+
+* eager (``round_scan=False``): the host selects and bills every
+  global iteration (two device->host copies each);
+* round (``round_scan=True``, the default, as in the reference): the
+  round's (T, C, B, ...) batches and (T, N) selection jitter are staged
+  once from pinned memory, and select / gather / global step / scatter
+  / bandit update stay on the device; ONE fetch per global round feeds
+  ``Meter.ingest_round`` and ``Orchestrator.ingest_round``, none per
+  local round;
+* epoch (``epoch_scan=True``): R same-phase rounds (cut at eval
+  points) with ``ucb_new_round`` on the device at each boundary, staged
+  in chunks of ``epoch_chunk_rounds`` through a two-slot ring (chunk
+  k+1 uploaded on a side stream under chunk k's compute); ONE fetch per
+  global epoch, none per local one.
 
 ``evaluate()`` and ``c3()`` (eq. 9) follow the rounds.  Every conv runs
 through the panel-GEMM kernel on the card.  The trainer runs on the
@@ -26,7 +44,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +53,13 @@ from repro_torch.core import masks as masks_mod
 from repro_torch.core.accounting import (Meter, lenet_flops_per_example,
                                          split_payload_bytes)
 from repro_torch.core.c3 import c3_score
-from repro_torch.core.losses import (accuracy, l1_penalty,
-                                     ntxent_supervised, token_nll)
-from repro_torch.core.orchestrator import Orchestrator
+from repro_torch.core.losses import accuracy, l1_penalty, token_nll
+from repro_torch.core.orchestrator import (Orchestrator, ucb_new_round,
+                                           ucb_select, ucb_update)
 from repro_torch.data.synthetic import batch_iterator
 from repro_torch.kernels.client_conv import client_proj
 from repro_torch.kernels.masked_adam import fused_adam_update
+from repro_torch.kernels.ntxent import ntxent_loss
 from repro_torch.models import lenet
 from repro_torch.optim.adam import adam_init, adam_update
 from repro_torch.weights import (from_numpy, to_numpy, tree_leaves,
@@ -62,6 +81,12 @@ class AdaSplitHParams:
     act_l1: float = 0.0             # beta: split-activation sparsification
     act_threshold: float = 1e-3     # payload nnz threshold
     fused_epilogue: bool = False    # bias+ReLU in the panel-GEMM epilogue
+    round_scan: bool = True         # a round per dispatch, one fetch per
+                                    # global round (False = eager rung)
+    epoch_scan: bool = False        # same-phase rounds per dispatch, one
+                                    # fetch per global epoch
+    epoch_chunk_rounds: int = 0     # rounds per staged chunk (0 = the
+                                    # whole epoch at once)
     seed: int = 0
 
 
@@ -143,6 +168,9 @@ class AdaSplitTrainer:
         self._fl_c = lenet_flops_per_example(cfg, "client")
         self._fl_s = lenet_flops_per_example(cfg, "server")
         self.history: List[Dict[str, Any]] = []
+        # rung history records whose client loss is still on the device:
+        # (record, summed client loss, T), filled in by the next fetch
+        self._pending: List[Tuple[dict, torch.Tensor, int]] = []
         self._rng = np.random.default_rng(hp.seed)
 
     # ------------------------------------------------------------------
@@ -182,7 +210,7 @@ class AdaSplitTrainer:
             acts = lenet.client_forward(cfg, cp_pp["c"], xs,
                                         fused_epilogue=hp.fused_epilogue)
             q = _proj_apply(cp_pp["p"], acts)
-            loss = ntxent_supervised(q, ys, hp.tau)               # (C,)
+            loss = ntxent_loss(q, ys, hp.tau)                     # (C,)
             if hp.act_l1:
                 loss = loss + hp.act_l1 * acts.abs().sum(
                     dim=tuple(range(1, acts.ndim))) / acts.shape[1]
@@ -252,19 +280,25 @@ class AdaSplitTrainer:
                 masks_sel, g_m, m_opt_sel, lr=hp.lr)
         return masks_sel, m_opt_sel, ces.detach(), fracs
 
-    def _global_iteration(self, selected, acts, ys):
-        """One batched global-phase iteration; exactly one device->host
-        copy (the per-client CE losses and payload nnz fractions)."""
-        hp = self.hp
-        idx = torch.as_tensor(np.asarray(selected), dtype=torch.int64,
-                              device=self.device)
+    def _selected_step(self, idx, acts, ys):
+        """Gather the selected clients' masks and mask-Adam rows, run one
+        global step on them, scatter them back; returns (ces, fracs)."""
         masks_sel = masks_mod.gather_clients(self.masks, idx)
         mopt_sel = masks_mod.gather_clients(self.m_opt, idx)
         masks_sel, mopt_sel, ces, fracs = self.global_step(
             masks_sel, mopt_sel, acts[idx], ys[idx])
         self.masks = masks_mod.scatter_clients(self.masks, idx, masks_sel)
         self.m_opt = masks_mod.scatter_clients(self.m_opt, idx, mopt_sel)
+        return ces, fracs
 
+    def _global_iteration(self, selected, acts, ys):
+        """One batched global-phase iteration of the eager rung; exactly
+        one device->host copy (the per-client CE losses and payload nnz
+        fractions)."""
+        hp = self.hp
+        idx = torch.as_tensor(np.asarray(selected), dtype=torch.int64,
+                              device=self.device)
+        ces, fracs = self._selected_step(idx, acts, ys)
         losses, fracs = torch.stack([ces, fracs]).cpu().numpy()  # one sync
         acts_shape = tuple(acts.shape[1:])
         for k in range(len(selected)):
@@ -274,17 +308,19 @@ class AdaSplitTrainer:
             self.meter.add_server_flops(3 * self._fl_s * hp.batch_size)
         return [float(l) for l in losses]
 
-    def _staging_bytes(self) -> float:
-        """H2D bytes of one iteration's (C, B) f32 images + int32 labels."""
+    def _staging_bytes_per_round(self, T: int) -> float:
+        """H2D bytes of T iterations' (C, B) f32 images + int32 labels:
+        billed alike by every rung (per iteration eager, per round or
+        epoch chunk on the others), so the totals agree."""
         img = 4 * 3 * self.cfg.image_size ** 2
-        return float(self.n * self.hp.batch_size * (img + 4))
+        return float(T * self.n * self.hp.batch_size * (img + 4))
 
     # ------------------------------------------------------------------
     def _epoch_batches(self, i):
         return batch_iterator(self.clients[i], self.hp.batch_size, self._rng)
 
     def train_iteration(self, xs, ys, global_phase: bool):
-        """One protocol iteration on numpy batches (C, B, ...)/(C, B).
+        """One eager protocol iteration on numpy batches (C, B, ...)/(C, B).
         Returns (selection, its CE losses, the (C,) client losses on the
         device); selection and CE are None in the local phase."""
         hp = self.hp
@@ -293,7 +329,7 @@ class AdaSplitTrainer:
         acts, closs = self._client_step(xs, ys)
         # 3x forward FLOPs for fwd+bwd
         self.meter.add_client_flops(3 * self._fl_c * self.n * hp.batch_size)
-        self.meter.add_host_device(self._staging_bytes())
+        self.meter.add_host_device(self._staging_bytes_per_round(1))
         if not global_phase:
             return None, None, closs
         selected = self.orch.select()
@@ -301,32 +337,304 @@ class AdaSplitTrainer:
         self.orch.update(selected, losses)
         return selected, losses, closs
 
-    def train(self, eval_every: int = 1):
-        """Run ``hp.rounds`` rounds; one history record per round with
-        the meter totals, the mean client loss and the mean server CE
-        of the round, and the accuracy at eval points."""
+    def _run_round_eager(self, iters, T: int, global_phase: bool):
+        """One round on the eager rung -> (summed client loss, CE losses)."""
+        closs = torch.zeros((), device=self.device)
+        ces = []
+        for t in range(T):
+            xs = np.stack([iters[i][t][0] for i in range(self.n)])
+            ys = np.stack([iters[i][t][1] for i in range(self.n)])
+            _, losses, cl = self.train_iteration(xs, ys, global_phase)
+            closs = closs + cl.mean()
+            ces += losses or []
+        return float(closs), np.asarray(ces, np.float64)
+
+    # ------------------------------------------------------------------
+    # the round and epoch rungs: iterations resident on the device
+    # ------------------------------------------------------------------
+    def _device_iteration(self, x, y, jitter, ucb, global_phase: bool):
+        """One iteration with no host read: the client step, then in the
+        global phase ``ucb_select`` on ``jitter`` (N,), the selected
+        step, and ``ucb_update`` from flags and losses scattered on the
+        device.  Returns (bandit state, (C,) client losses, (idx, ces,
+        fracs) or None)."""
+        acts, closs = self._client_step(x, y)
+        if not global_phase:
+            return ucb, closs, None
+        idx = ucb_select(ucb, self.orch.k, jitter)
+        ces, fracs = self._selected_step(idx, acts, y)
+        zeros = torch.zeros((self.n,), device=self.device)
+        sel = zeros.index_fill(0, idx, 1.0)
+        dense = zeros.index_copy(0, idx, ces)
+        ucb = ucb_update(ucb, sel, dense, gamma=self.hp.gamma)
+        return ucb, closs, (idx, ces, fracs)
+
+    def _device_round(self, staged, ucb, global_phase: bool):
+        """The T iterations of one staged round (images, labels and, in
+        the global phase, jitter, each with a leading T axis) ->
+        (bandit state, summed client loss, per-iteration outputs)."""
+        closs, outs = torch.zeros((), device=self.device), []
+        for t in range(staged[0].shape[0]):
+            ucb, cl, out = self._device_iteration(
+                staged[0][t], staged[1][t],
+                staged[2][t] if global_phase else None, ucb, global_phase)
+            closs = closs + cl.mean()
+            outs.append(out)
+        return ucb, closs, outs
+
+    def _stage_host(self, rounds, T: int):
+        """Host-side staging: R rounds' per-client batch lists as (R, T,
+        C, B, ...) images and (R, T, C, B) labels, each batch written
+        once, on the card into pinned memory (the source of an
+        asynchronous copy)."""
+        pin = self.device.type == "cuda"
+        x0, y0 = rounds[0][0][0]
+        out = []
+        for j, a0 in enumerate((x0, y0)):
+            buf = torch.empty((len(rounds), T, self.n) + a0.shape,
+                              dtype=torch.from_numpy(a0).dtype,
+                              pin_memory=pin)
+            view = buf.numpy()
+            for r, iters in enumerate(rounds):
+                for t in range(T):
+                    np.stack([iters[i][t][j] for i in range(self.n)],
+                             out=view[r, t])
+            out.append(buf)
+        return out
+
+    def _upload(self, host, stream=None):
+        """Host tensors -> device tensors, and an event after their
+        copies (None on the CPU or the current stream).  On the card each
+        is copied from pinned memory without blocking, on ``stream`` (the
+        current stream by default): a pageable copy would wait for the
+        device."""
+        if self.device.type != "cuda":
+            return list(host), None
+        host = [h if h.is_pinned() else h.pin_memory() for h in host]
+        if stream is None:
+            return [h.to(self.device, non_blocking=True) for h in host], None
+        with torch.cuda.stream(stream):
+            dev = [h.to(self.device, non_blocking=True) for h in host]
+            done = torch.cuda.Event()
+            done.record(stream)
+        return dev, done
+
+    def _adopt(self, staged):
+        """Make the current stream wait for a side-stream upload, and
+        tell the allocator the current stream uses its buffers, so none
+        is reused before this stream is done with it."""
+        dev, done = staged
+        if done is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            for t in dev:
+                t.record_stream(cur)
+        return dev
+
+    def _fetch(self, tensors):
+        """The rungs' one device->host copy: ``tensors`` and the summed
+        client losses of earlier local rounds (filled into their history
+        records here), as one float32 transfer (client ids < 2**24 are
+        exact).  Returns numpy arrays of the tensors' shapes."""
+        pend, self._pending = self._pending, []
+        parts = [p[1] for p in pend] + list(tensors)
+        host = torch.cat([t.reshape(-1).to(torch.float32)
+                          for t in parts]).cpu().numpy()
+        out, i = [], 0
+        for t in parts:
+            out.append(host[i:i + t.numel()].reshape(tuple(t.shape)))
+            i += t.numel()
+        for (rec, _, T), v in zip(pend, out):
+            rec["client_loss"] = float(v) / max(T, 1)
+        return out[len(pend):]
+
+    def _round_bill(self, T: int) -> dict:
         hp = self.hp
+        return dict(acts_shape=(hp.batch_size,) + self._acts_spatial,
+                    batch=hp.batch_size, n_clients=self.n, n_iters=T,
+                    client_flops_per_example=self._fl_c,
+                    server_flops_per_example=self._fl_s,
+                    host_device_bytes=self._staging_bytes_per_round(T))
+
+    def _run_round_scan(self, iters, T: int, global_phase: bool):
+        """One round on the device from per-client batch lists: its
+        (T, C, B, ...) batches and (T, N) jitter staged once, no host read
+        inside the round, then one fetch in a global round (none in a
+        local one: its client loss stays on the device until the next
+        fetch) -> (summed client loss, CE losses (T*k,) or None)."""
+        if T == 0:
+            return 0.0, None
+        xs, ys = self._stage_host([iters], T)
+        host = [xs[0], ys[0]]
+        if global_phase:
+            host.append(self.orch.jitter_schedule(self.orch._n_selects, T))
+        staged, _ = self._upload(host)
+        ucb, closs, outs = self._device_round(staged, self.orch.state,
+                                              global_phase)
+        bill = self._round_bill(T)
+        if not global_phase:
+            self.meter.ingest_round(n_selected=0, **bill)
+            self.orch.state = ucb
+            return closs, None
+        idx, ces, fracs = (torch.stack(o) for o in zip(*outs))
+        closs_h, idx_h, ces_h, fracs_h = self._fetch([closs, idx, ces,
+                                                      fracs])  # one sync
+        self.meter.ingest_round(
+            nnz_fracs=fracs_h if self.hp.act_l1 else None,
+            n_selected=idx_h.shape[1], **bill)
+        self.orch.ingest_round(idx_h.astype(np.int64), ces_h, state=ucb)
+        return float(closs_h), ces_h.reshape(-1).astype(np.float64)
+
+    def _run_epoch_scan(self, rounds_data, T: int, global_phase: bool):
+        """Run an epoch of R rounds on the device, ``ucb_new_round`` at
+        each boundary.
+
+        rounds_data: per-round per-client batch lists (as ``train``
+        draws them), or zero-argument callables making them, called in
+        round order as each chunk is staged.  Rounds go up in chunks of
+        ``epoch_chunk_rounds`` (0 = all R at once) through a two-slot
+        ring: chunk k+1's upload is issued on a side stream before chunk
+        k's compute, so the copy runs under it.  One fetch at the end of
+        a global epoch, none in a local one.  Returns the per-round
+        (summed client loss, CE losses) and cumulative meter summaries.
+        """
+        hp = self.hp
+        R = len(rounds_data)
+        if R == 0 or T == 0:
+            return [], []
+        chunk = max(1, min(hp.epoch_chunk_rounds or R, R))
+        starts = list(range(0, R, chunk))
+        base = self.orch._n_selects
+        side = (torch.cuda.Stream(self.device)
+                if self.device.type == "cuda" else None)
+
+        def stage(r0):
+            rc = min(chunk, R - r0)
+            rounds = [rounds_data[r]() if callable(rounds_data[r])
+                      else rounds_data[r] for r in range(r0, r0 + rc)]
+            host = self._stage_host(rounds, T)
+            if global_phase:
+                host.append(self.orch.jitter_schedule(
+                    base + r0 * T, rc * T).reshape(rc, T, self.n))
+            return self._upload(host, side)
+
+        ucb, closs, outs = self.orch.state, [], []
+        ring = [stage(0)]
+        for ci in range(len(starts)):
+            staged = self._adopt(ring.pop(0))
+            if ci + 1 < len(starts):
+                ring.append(stage(starts[ci + 1]))
+            for r in range(staged[0].shape[0]):
+                ucb = ucb_new_round(ucb, gamma=hp.gamma)
+                ucb, cl, out = self._device_round([a[r] for a in staged],
+                                                  ucb, global_phase)
+                closs.append(cl)
+                outs += out
+            del staged
+
+        bill = self._round_bill(T)
+        if not global_phase:
+            summaries = self.meter.ingest_epoch(n_rounds=R, n_selected=0,
+                                                **bill)
+            self.orch.ingest_epoch(None, None, state=ucb, n_rounds=R)
+            return [(cl, None) for cl in closs], summaries
+        idx, ces, fracs = (torch.stack(o).reshape((R, T) + o[0].shape)
+                           for o in zip(*outs))
+        closs_h, idx_h, ces_h, fracs_h = self._fetch(
+            [torch.stack(closs), idx, ces, fracs])     # the one epoch sync
+        summaries = self.meter.ingest_epoch(
+            n_rounds=R, nnz_fracs=fracs_h if hp.act_l1 else None,
+            n_selected=idx_h.shape[-1], **bill)
+        self.orch.ingest_epoch(idx_h.astype(np.int64), ces_h, state=ucb)
+        return ([(float(closs_h[r]), ces_h[r].reshape(-1).astype(np.float64))
+                 for r in range(R)], summaries)
+
+    # ------------------------------------------------------------------
+    def _record(self, r: int, global_phase: bool, T: int, closs, ces,
+                summary: dict, evaluate: bool):
+        """Append round r's history record: the meter totals, the mean
+        client loss (filled in at the next fetch while it is still a
+        device tensor), the mean server CE, and the accuracy at eval
+        points."""
+        rec = {"round": r, "phase": "global" if global_phase else "local",
+               "client_loss": None,
+               "ce": float(np.mean(ces)) if ces is not None and len(ces)
+               else None,
+               **summary}
+        if torch.is_tensor(closs):
+            self._pending.append((rec, closs, T))
+        else:
+            rec["client_loss"] = closs / max(T, 1)
+        if evaluate:
+            rec["accuracy"] = self.evaluate()
+        self.history.append(rec)
+
+    def train(self, eval_every: int = 1):
+        """Run ``hp.rounds`` rounds on the rung the hparams pick; one
+        history record per round with the meter totals, the mean client
+        loss and the mean server CE of the round, and the accuracy at
+        eval points."""
+        hp = self.hp
+        if hp.round_scan and hp.epoch_scan:
+            return self._train_epoch_scan(eval_every)
         local_rounds = int(round(hp.kappa * hp.rounds))
+        run_round = (self._run_round_scan if hp.round_scan
+                     else self._run_round_eager)
         for r in range(hp.rounds):
             global_phase = r >= local_rounds
             self.orch.new_round()
             iters = [list(self._epoch_batches(i)) for i in range(self.n)]
             T = min(len(it) for it in iters)
-            closs = torch.zeros((), device=self.device)
-            ces = []
-            for t in range(T):
-                xs = np.stack([iters[i][t][0] for i in range(self.n)])
-                ys = np.stack([iters[i][t][1] for i in range(self.n)])
-                _, losses, cl = self.train_iteration(xs, ys, global_phase)
-                closs = closs + cl.mean()
-                ces += losses or []
-            rec = {"round": r, "phase": "global" if global_phase else "local",
-                   "client_loss": float(closs) / max(T, 1),
-                   "ce": float(np.mean(ces)) if ces else None,
-                   **self.meter.summary()}
-            if (r + 1) % eval_every == 0 or r == hp.rounds - 1:
-                rec["accuracy"] = self.evaluate()
-            self.history.append(rec)
+            closs, ces = run_round(iters, T, global_phase)
+            self._record(r, global_phase, T, closs, ces,
+                         self.meter.summary(),
+                         (r + 1) % eval_every == 0 or r == hp.rounds - 1)
+        if self._pending:
+            self._fetch([])
+        return self.history
+
+    def _train_epoch_scan(self, eval_every: int):
+        """The epoch rung: consecutive rounds of one phase form an epoch,
+        cut at eval points (where the host needs the params anyway), each
+        run by ``_run_epoch_scan``; the per-round records are rebuilt
+        from the epoch's outputs."""
+        hp = self.hp
+        local_rounds = int(round(hp.kappa * hp.rounds))
+        # batch_iterator drops the remainder, so T follows from the sizes
+        T = min(len(c.x) // hp.batch_size for c in self.clients)
+
+        def is_eval(r):
+            return (r + 1) % eval_every == 0 or r == hp.rounds - 1
+
+        def make_round():
+            """One round's batches, drawn from the same per-client RNG
+            stream in the same order as the other rungs."""
+            return [list(self._epoch_batches(i)) for i in range(self.n)]
+
+        r = 0
+        while r < hp.rounds:
+            global_phase = r >= local_rounds
+            end = r
+            while (end + 1 < hp.rounds and not is_eval(end)
+                   and ((end + 1) >= local_rounds) == global_phase):
+                end += 1
+            R = end - r + 1
+            if T == 0:
+                # nothing to run, but the other rungs reset the bandit
+                # every round
+                for _ in range(R):
+                    self.orch.new_round()
+                results = [(0.0, None)] * R
+                summaries = [self.meter.summary()] * R
+            else:
+                results, summaries = self._run_epoch_scan(
+                    [make_round] * R, T, global_phase)
+            for j, rr in enumerate(range(r, end + 1)):
+                self._record(rr, global_phase, T, *results[j], summaries[j],
+                             is_eval(rr))
+            r = end + 1
+        if self._pending:
+            self._fetch([])
         return self.history
 
     # ------------------------------------------------------------------

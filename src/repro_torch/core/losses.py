@@ -2,7 +2,10 @@
 (port of ``repro.core.losses``).
 
 ``ntxent_supervised`` is batched over any leading axes: ``(C, B, D)``
-projections give ``(C,)`` per-client losses in one pass.
+projections give ``(C,)`` per-client losses in one pass.  It is the
+plain form of the loss and the tests' oracle; the trainer's client step
+computes the same loss through the NT-Xent kernel
+(``kernels.ntxent.ntxent_loss``).
 """
 from __future__ import annotations
 

@@ -9,12 +9,16 @@ Unselected clients decay their loss estimate:
   L_i^t = (L_i^{t-1} + L_i^{t-2}) / 2,  with L_i init to 100 at t=0,1.
 
 The functional ``ucb_*`` functions keep the O(N) incremental state as
-float32 tensors; :class:`Orchestrator` is the host wrapper of the eager
-trainer.  Ties are broken by jitter RELATIVE to the advantage magnitude
-(``_JITTER``), drawn from a pluggable source: by default a
-``torch.Generator`` seeded from the seed and the select counter.  The
-reference draws with ``jax.random``, which torch cannot reproduce, so
-parity tests inject the reference's draws through ``jitter``.
+float32 tensors; they run on the device inside the trainer's round and
+epoch rungs.  :class:`Orchestrator` is the host wrapper: the eager
+trainer's ``select``/``update``, the full L/S histories as (N, T)
+arrays, and ``ingest_round``/``ingest_epoch``, which absorb what a rung
+computed on the device after its one fetch.  Ties are broken by jitter
+RELATIVE to the advantage magnitude (``_JITTER``), drawn from a
+pluggable source: by default a ``torch.Generator`` seeded from the seed
+and the select counter.  The reference draws with ``jax.random``, which
+torch cannot reproduce, so parity tests inject the reference's draws
+through ``jitter``.
 """
 from __future__ import annotations
 
@@ -103,9 +107,12 @@ def generator_jitter(seed: int) -> Callable[[int, int], torch.Tensor]:
 
 
 class Orchestrator:
-    """Host wrapper over the functional UCB math for the eager trainer:
-    ``select`` draws the counter-th jitter, ``update`` applies one
-    iteration, ``new_round`` resets the round history."""
+    """Host wrapper over the functional UCB math: ``select`` draws the
+    counter-th jitter, ``update`` applies one iteration, ``new_round``
+    resets the round history.  ``L``/``S`` mirror the full per-round
+    histories as (N, T) float64 arrays (row i is client i); live
+    decisions come from the incremental device state, the histories are
+    for introspection (``advantage``)."""
 
     def __init__(self, n_clients: int, eta: float, gamma: float = 0.87,
                  init_loss: float = INIT_LOSS, seed: int = 0, *,
@@ -114,11 +121,35 @@ class Orchestrator:
         self.n = n_clients
         self.k = n_selected(n_clients, eta)
         self.gamma = float(gamma)
+        self.init_loss = float(init_loss)
         self.device = torch.device(device)
         self.state = ucb_init(n_clients, gamma=self.gamma,
                               init_loss=init_loss, device=self.device)
+        self.L = np.full((n_clients, 2), init_loss, np.float64)
+        self.S = np.ones((n_clients, 2), np.float64)
         self.jitter = jitter if jitter is not None else generator_jitter(seed)
         self._n_selects = 0
+
+    def jitter_schedule(self, counter: int, T: int) -> torch.Tensor:
+        """(T, N) float32 CPU draws of iterations ``counter`` ..
+        ``counter + T - 1``: row t is what ``select`` draws as its
+        ``counter + t``-th selection, so a rung that selects on the
+        device from these rows selects as the eager ``select`` does."""
+        def row(j):
+            if torch.is_tensor(j):
+                return j.to("cpu", torch.float32)
+            return torch.tensor(np.asarray(j), dtype=torch.float32)
+        rows = [row(self.jitter(counter + t, self.n)) for t in range(T)]
+        return torch.stack(rows) if rows else torch.zeros((0, self.n))
+
+    def advantage(self) -> np.ndarray:
+        """Eq. 6 from the full history (one discount matvec): a
+        cross-check of the incremental state, not the decision path."""
+        T = self.L.shape[1]
+        disc = self.gamma ** (T - 1 - np.arange(T))
+        l = self.L @ disc
+        s = np.maximum(self.S @ disc, 1e-8)
+        return l / s + np.sqrt(2.0 * np.log(max(T, 2)) / s)
 
     def select(self) -> np.ndarray:
         """Top-eta clients by advantage (ties broken by the jitter)."""
@@ -126,17 +157,75 @@ class Orchestrator:
         self._n_selects += 1
         return ucb_select(self.state, self.k, jit).cpu().numpy()
 
-    def update(self, selected: Sequence[int], losses: Sequence[float]):
-        """losses: server loss per *selected* client this iteration."""
+    def _dense(self, selected, losses):
+        """(N,) float32 selection flags and losses from a selection."""
         sel_idx = np.asarray(selected, np.int64)
         mask = np.zeros((self.n,), np.float32)
         mask[sel_idx] = 1.0
         dense = np.zeros((self.n,), np.float32)
         dense[sel_idx] = np.asarray(losses, np.float32)
+        return mask, dense
+
+    def _update_state(self, mask, dense):
         self.state = ucb_update(self.state,
                                 torch.from_numpy(mask).to(self.device),
                                 torch.from_numpy(dense).to(self.device),
                                 gamma=self.gamma)
 
+    def update(self, selected: Sequence[int], losses: Sequence[float]):
+        """losses: server loss per *selected* client this iteration."""
+        mask, dense = self._dense(selected, losses)
+        self._update_state(mask, dense)
+        self._append_history(mask, dense)
+
+    def _append_history(self, mask, dense):
+        decayed = (self.L[:, -1] + self.L[:, -2]) / 2.0
+        new_l = np.where(mask > 0, dense, decayed)
+        self.L = np.column_stack([self.L, new_l])
+        self.S = np.column_stack([self.S, mask.astype(np.float64)])
+
     def new_round(self):
         self.state = ucb_new_round(self.state, gamma=self.gamma)
+        self._reset_round_history()
+
+    def _reset_round_history(self):
+        """The host-history half of ``new_round``: L=[last, last],
+        S=[1, 1]; the epoch rung resets the device state itself."""
+        last = self.L[:, -1]
+        self.L = np.column_stack([last, last])
+        self.S = np.ones((self.n, 2), np.float64)
+
+    # -- the rungs: whole rounds and epochs computed on the device -----
+    def ingest_round(self, sel_idx, losses, state=None):
+        """Absorb a round computed on the device.  sel_idx (T, k) client
+        ids and losses (T, k) per-selected CE.  ``state`` (the rung's
+        final bandit state) is adopted as it is; without it the updates
+        are replayed on ``self.state``.  Advances the select counter by
+        T, as T ``select`` calls would."""
+        sel_idx = np.asarray(sel_idx)
+        losses = np.asarray(losses)
+        for t in range(sel_idx.shape[0]):
+            mask, dense = self._dense(sel_idx[t], losses[t])
+            self._append_history(mask, dense)
+            if state is None:
+                self._update_state(mask, dense)
+        if state is not None:
+            self.state = state
+        self._n_selects += sel_idx.shape[0]
+
+    def ingest_epoch(self, sel_idx, losses, *, state, n_rounds=None):
+        """Absorb an epoch of R rounds computed on the device, each opened
+        by ``ucb_new_round`` there: R x (``_reset_round_history``;
+        ``ingest_round``) with the final ``state`` adopted.  sel_idx and
+        losses (R, T, k), or None for a local epoch (pass ``n_rounds``),
+        which only resets the histories."""
+        if sel_idx is None:
+            for _ in range(n_rounds):
+                self._reset_round_history()
+            self.state = state
+            return
+        sel_idx = np.asarray(sel_idx)
+        losses = np.asarray(losses)
+        for r in range(sel_idx.shape[0]):
+            self._reset_round_history()
+            self.ingest_round(sel_idx[r], losses[r], state=state)

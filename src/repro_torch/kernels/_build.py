@@ -26,10 +26,11 @@ COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # per-source extra flags: the Adam step rounds every multiply and add
 # separately, as the plain fp32 version does
 EXTRA = {"masked_adam": ["-fmad=false"], "panel_gemm": [],
-         "flash_attention": []}
+         "flash_attention": [], "ntxent": [], "soft_threshold": []}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}
+_sm_counts: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -91,3 +92,12 @@ def check(err: int, what: str):
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (grid-stride caps)."""
+    import torch
+    if device.index not in _sm_counts:
+        _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device.index]

@@ -49,16 +49,6 @@ def masked_adam_plain(p, g, mu, nu, mask, *, lr, b1, b2, eps, b1t, b2t):
     return new_p.to(p.dtype), mu, nu
 
 
-_SM_COUNT = {}
-
-
-def _sm_count(device) -> int:
-    if device.index not in _SM_COUNT:
-        _SM_COUNT[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SM_COUNT[device.index]
-
-
 def _lib():
     lib = _build.load("masked_adam")
     if not getattr(lib, "_typed", False):
@@ -103,7 +93,7 @@ def masked_adam_cuda(p, g, mu, nu, mask, *, lr, b1, b2, eps, b1t, b2t):
             b1t.data_ptr(), b2t.data_ptr(),
             outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
             n, n // rows, lr, b1, b2, 1 - b1, 1 - b2, eps,
-            _sm_count(p.device),
+            _build.sm_count(p.device),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "masked_adam_f32")
     LAUNCHES["masked_adam"] += 1

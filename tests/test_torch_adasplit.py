@@ -95,8 +95,8 @@ def pair(request):
     state0 = _ref_state(ref)
 
     def make_port(**extra):
-        port = TTrainer(tcfg, THParams(**kw), port_clients, device="cpu",
-                        **extra)
+        port = TTrainer(tcfg, THParams(round_scan=False, **kw), port_clients,
+                        device="cpu", **extra)
         port.set_state(state0)
         return port
 

@@ -12,7 +12,11 @@ kernel is built with -fmad=false and repeats the plain version's float32
 ops in the same order (1e-6 relative); the flash kernel sums its
 float32 dots and softmax in another order than the plain version, with
 exp2 in place of exp (2e-5 absolute on outputs of order 1 in float32;
-in bfloat16 the output is rounded to 8 bits of mantissa, 2e-2)."""
+in bfloat16 the output is rounded to 8 bits of mantissa, 2e-2); the
+NT-Xent kernel sums its f32 dots and row sums in another order (1e-5 of
+the largest magnitude); soft-threshold is bit-equal to its plain
+version.  The round and epoch rungs on the card must select and bill as
+the eager rung does and make no host sync but their one fetch."""
 import dataclasses
 
 import numpy as np
@@ -25,6 +29,8 @@ from repro_torch.data.synthetic import mixed_noniid
 from repro_torch.kernels import client_conv as tcc
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import masked_adam as tma
+from repro_torch.kernels import ntxent as tnt
+from repro_torch.kernels import soft_threshold as tst
 from repro_torch.weights import strict_fp32, tree_leaves
 
 pytestmark = pytest.mark.gpu
@@ -187,3 +193,129 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda):
     lc, _ = dec.decode_step(cfg, cpu, tok, cc, last + 1)
     assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("C,B,D", [(32, 32, 64), (3, 7, 16), (2, 33, 64),
+                                   (1, 2, 256), (4, 100, 48)])
+def test_ntxent_stats_matches_plain_and_gradient_matches_cpu(cuda, C, B, D):
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    raw = torch.randn((C, B, D), device=cuda, generator=gen)
+    q = raw / (torch.linalg.vector_norm(raw, dim=-1, keepdim=True) + 1e-8)
+    y = torch.randint(0, 3, (C, B), device=cuda, generator=gen,
+                      dtype=torch.int32)
+    y[:, 0] = 99                                # a row with no positive
+    before = tnt.LAUNCHES["ntxent_stats"]
+    got = tnt.ntxent_stats_cuda(q, y, 0.07)
+    want = tnt.ntxent_stats_plain(q, y, 0.07)
+    torch.cuda.synchronize()
+    assert tnt.LAUNCHES["ntxent_stats"] == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == (C, B)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(
+            1.0, float(b.abs().max())))
+    qg = raw.clone().requires_grad_(True)
+    tnt.ntxent_loss(qg, y, 0.07).sum().backward()
+    qc = raw.cpu().requires_grad_(True)
+    tnt.ntxent_loss(qc, y.cpu(), 0.07).sum().backward()
+    torch.testing.assert_close(qg.grad.cpu(), qc.grad, rtol=0, atol=1e-5 * (
+        float(qc.grad.abs().max()) + 1e-30))
+
+
+def test_ntxent_refuses_what_it_cannot_take(cuda):
+    y = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="projection width"):
+        tnt.ntxent_stats_cuda(torch.zeros((2, 4, 257), device=cuda), y)
+    with pytest.raises(TypeError):
+        tnt.ntxent_stats_cuda(torch.zeros((2, 4, 8), device=cuda,
+                                          dtype=torch.float64), y)
+
+
+@pytest.mark.parametrize("n", [1, 7, 1 << 20, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_soft_threshold_bit_equal_to_plain(cuda, n, dtype, offset):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((n + offset,), device=cuda, generator=gen).to(dtype)
+    x = x[offset:]                  # offset 1: the kernel's scalar path
+    before = tst.LAUNCHES["soft_threshold"]
+    got = tst.soft_threshold(x, 0.3)
+    want = tst.soft_threshold_plain(x, 0.3)
+    torch.cuda.synchronize()
+    assert tst.LAUNCHES["soft_threshold"] == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def _small_lenet():
+    cfg = dataclasses.replace(get_config("lenet-cifar"), image_size=16,
+                              conv_channels=(4, 8, 8))
+    clients = mixed_noniid(n_clients=4, n_per_client=24, n_test=8, seed=0)
+    for c in clients:
+        c.x, c.test_x = c.x[:, :16, :16], c.test_x[:, :16, :16]
+    return cfg, clients
+
+
+@pytest.mark.parametrize("rung", [dict(), dict(epoch_scan=True),
+                                  dict(epoch_scan=True, epoch_chunk_rounds=1)],
+                         ids=["round", "epoch", "epoch_chunk1"])
+def test_rungs_on_card_match_eager_with_one_fetch(cuda, rung):
+    """The rung and the eager rung on the card: equal selections and
+    Meter totals, state within the Adam sign-flip bound (in practice
+    equal); the rung's training runs under sync_debug_mode "error", the
+    mode lifted only in its one fetch per global round or epoch, and the
+    NT-Xent kernel launches once per client step."""
+    cfg, clients = _small_lenet()
+    kw = dict(rounds=3, kappa=0.34, eta=0.5, batch_size=8, act_l1=1e-3)
+    runs = {}
+    for name, extra in (("eager", dict(round_scan=False)), ("rung", rung)):
+        tr = AdaSplitTrainer(cfg, AdaSplitHParams(**kw, **extra), clients,
+                             device="cuda")
+        log, ingest, update = [], tr.orch.ingest_round, tr.orch.update
+        tr.orch.ingest_round = lambda s, l, state=None: (
+            log.extend(np.array(s)), ingest(s, l, state=state))
+        tr.orch.update = lambda s, l: (log.append(np.array(s)), update(s, l))
+        fetches, fetch = [], tr._fetch
+
+        def lifted(tensors, fetch=fetch, fetches=fetches):
+            fetches.append(len(tr.history))
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fetch(tensors)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        tr._fetch = lifted
+        tnt.reset_launches()
+        if name == "rung":
+            torch.cuda.set_sync_debug_mode("error")
+            # the history's eval points read accuracies on the host
+            tr.evaluate = lambda real=tr.evaluate: _lifted(real)
+        try:
+            tr.train(eval_every=100)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert tnt.LAUNCHES["ntxent_stats"] == kw["rounds"] * 3
+        runs[name] = (tr, log, fetches)
+    (eager, e_log, _), (tr, r_log, fetches) = runs["eager"], runs["rung"]
+    assert fetches == ([1, 2] if not rung else [1])
+    assert len(r_log) == len(e_log) == 6
+    for a, b in zip(r_log, e_log):
+        np.testing.assert_array_equal(a, b)
+    for f in ("bandwidth_bytes", "client_flops", "server_flops",
+              "host_device_bytes"):
+        assert getattr(tr.meter, f) == getattr(eager.meter, f), f
+    off = total = 0
+    for a, b in zip(tree_leaves(tr.get_state()),
+                    tree_leaves(eager.get_state())):
+        d = np.abs(a.astype(np.float64) - b)
+        assert d.max(initial=0.0) <= 2.5 * tr.hp.lr * 6
+        off += int(np.sum(d > 1e-5 + 1e-4 * np.abs(b)))
+        total += d.size
+    assert off <= 1e-3 * total
+
+
+def _lifted(fn):
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("error")
