@@ -7,7 +7,9 @@ batched GEMM
 
 whose forward runs the hand-written CUDA kernel ``csrc/panel_gemm.cu``
 for CUDA tensors (with an optional bias+ReLU epilogue), and its plain
-PyTorch version for CPU tensors.  The backward is ``torch.bmm``, as the
+PyTorch version for CPU tensors.  ``plan_panel_gemm`` picks the
+kernel's output tile and how many ways it splits K, so that the grid
+fills the card.  The backward is ``torch.bmm``, as the
 reference routes its custom VJP through einsum GEMMs that it, too,
 leaves outside Pallas; the fused epilogue's ReLU mask comes from the
 saved output (``out > 0`` <=> pre-activation > 0).
@@ -72,6 +74,41 @@ def _panels(x, w):
 # rows per chunk of the plain version: bounds its (C, rows, K, N) product
 _PLAIN_ROWS = 8192
 
+# the kernel's K chunk, its most K splits (the portable cluster size), and
+# its output tile's rows for each width of tile (csrc/panel_gemm.cu, Cfg;
+# the library is held to this table when it is loaded)
+BLOCK_K = 32
+MAX_SPLITS = 8
+BLOCK_M = {8: 256, 16: 256, 32: 128, 64: 128}
+# a split's fixed cost in chunks, in the planner's model (fitted to the
+# LeNet server blocks on an H100: 4 splits of K=800 beat 2 of them)
+_SPLIT_COST = 2.0
+
+
+def plan_panel_gemm(C, M, K, N, n_sms):
+    """(block_m, block_n, splits) of the kernel for a (C, M, K) @ (C, K,
+    N) product on a card of ``n_sms`` SMs.  The tile is the narrowest of
+    8/16/32/64 columns that holds N (64 beyond).  A grid that fills the
+    card as it is is not split.  Otherwise K is split 2, 4 or 8 ways (the
+    splits of one tile run as one thread-block cluster and sum in a fixed
+    order), never so far that a split gets fewer than two 32-deep chunks:
+    of the counts that give every SM a CTA (the deepest allowed, if none
+    does) the one whose busiest SM finishes first, counting a split's
+    chunks plus ``_SPLIT_COST`` chunks for its pipeline fill and its
+    share of the reduction."""
+    block_n = next((bn for bn in (8, 16, 32, 64) if N <= bn), 64)
+    block_m = BLOCK_M[block_n]
+    tiles = -(-M // block_m) * -(-N // block_n) * C
+    chunks = -(-K // BLOCK_K)
+    allowed = [s for s in (2, 4, 8) if chunks >= 2 * s]
+    if tiles >= n_sms or not allowed:
+        return block_m, block_n, 1
+    filling = [s for s in allowed if tiles * s >= n_sms] or allowed[-1:]
+
+    def busiest(s):
+        return -(-tiles * s // n_sms) * (chunks / s + _SPLIT_COST)
+    return block_m, block_n, min(filling, key=busiest)
+
 
 def panel_gemm_plain(a, b, bias=None):
     """Plain PyTorch version of the kernel: each output is the float32
@@ -99,7 +136,8 @@ def _check(t, name, ndim):
 
 def panel_gemm_cuda(a, b, bias=None):
     """Launch ``csrc/panel_gemm.cu``: a (C, M, K) @ b (C, K, N) [+ bias
-    (C, N), ReLU] -> (C, M, N), all float32 CUDA tensors on one device."""
+    (C, N), ReLU] -> (C, M, N), all float32 CUDA tensors on one device,
+    with ``plan_panel_gemm``'s tile and K splits for the device."""
     _check(a, "a", 3)
     _check(b, "b", 3)
     C, M, K = a.shape
@@ -117,12 +155,15 @@ def panel_gemm_cuda(a, b, bias=None):
     out = torch.empty((C, M, N), device=a.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
+    _, block_n, splits = plan_panel_gemm(C, M, K, N,
+                                         _build.sm_count(a.device))
     lib = _lib()
     with torch.cuda.device(a.device):
         err = lib.panel_gemm_f32(
             a.data_ptr(), b.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            C, M, K, N, torch.cuda.current_stream().cuda_stream)
+            C, M, K, N, block_n, splits,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "panel_gemm_f32")
     LAUNCHES["panel_gemm" if bias is None else "panel_gemm_bias_relu"] += 1
     return out
@@ -133,8 +174,14 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.panel_gemm_f32.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.panel_gemm_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.panel_gemm_f32.restype = ctypes.c_int
+        lib.panel_gemm_block_m.argtypes = [i]
+        lib.panel_gemm_block_m.restype = i
+        built = {bn: lib.panel_gemm_block_m(bn) for bn in BLOCK_M}
+        if built != BLOCK_M:
+            raise RuntimeError(f"panel_gemm.cu tiles {built} differ from "
+                               f"the planner's BLOCK_M {BLOCK_M}")
         lib._typed = True
     return lib
 

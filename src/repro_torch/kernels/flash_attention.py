@@ -79,8 +79,9 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, kv_len=None):
     """Launch ``csrc/flash_attention.cu``.  q (B, Hq, S, hd), k and v
     (B, Hkv, S, hd) of one dtype (float32 or bfloat16) on one CUDA
     device, hd 64, Hq a multiple of Hkv, the head dim contiguous (other
-    strides free, so transposed views of (B, S, H, hd) tensors go in
-    as they are); kv_len an optional (B,) int32 tensor with values in
+    strides and the base aligned to 4 elements in float32, 8 in
+    bfloat16, so transposed views of (B, S, H, hd) tensors go in as
+    they are); kv_len an optional (B,) int32 tensor with values in
     [1, S].  Returns a (B, Hq, S, hd) view of a (B, S, Hq, hd) buffer,
     so that transposing it back to the model's layout is free."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
@@ -100,14 +101,16 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, kv_len=None):
     if window < 0:
         raise ValueError(f"window {window} < 0")
     dev = q.device
+    # float32: 4-element vector loads; bfloat16: TMA, whose tensor maps
+    # take 16-byte aligned bases and strides (8 elements)
+    align = 4 if q.dtype == torch.float32 else 8
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"{name}: all operands on one CUDA device")
-        # 4-element vector loads: a contiguous head dim, aligned rows
-        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]) \
-                or t.data_ptr() % (4 * t.element_size()):
+        if t.stride(-1) != 1 or any(s % align for s in t.stride()[:3]) \
+                or t.data_ptr() % (align * t.element_size()):
             raise ValueError(f"{name}: head dim must be contiguous and rows "
-                             f"4-element aligned, strides {t.stride()}")
+                             f"{align}-element aligned, strides {t.stride()}")
     if kv_len is not None:
         if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (B,) \
                 or kv_len.device != dev or not kv_len.is_contiguous():

@@ -7,7 +7,8 @@ trainer on the CPU.  Run them there with
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances: the panel GEMM sums <= 1600 float32 products in another
-order than the plain version (1e-4 on values of order 1); the Adam
+order than the plain version, split over up to 8 K ranges (1e-4 on
+values of order 1), and is bit-equal to itself launch to launch; the Adam
 kernel is built with -fmad=false and repeats the plain version's float32
 ops in the same order (1e-6 relative); the flash kernel sums its
 float32 dots and softmax in another order than the plain version, with
@@ -26,12 +27,15 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.core.adasplit import AdaSplitHParams, AdaSplitTrainer
 from repro_torch.data.synthetic import mixed_noniid
+from repro_torch.kernels import _build
 from repro_torch.kernels import client_conv as tcc
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import masked_adam as tma
 from repro_torch.kernels import ntxent as tnt
 from repro_torch.kernels import soft_threshold as tst
 from repro_torch.weights import strict_fp32, tree_leaves
+# shapes whose plan on a 132-SM card (H100 SXM) splits K 1, 2, 4 and 8 ways
+from test_torch_panel_plan import SPLIT_GEMMS
 
 pytestmark = pytest.mark.gpu
 KW = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
@@ -45,14 +49,28 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("C,M,K,N", [(2, 2048, 75, 6), (1, 1000, 150, 16),
-                                     (1, 77, 1600, 64), (3, 129, 17, 70)])
-@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
-def test_panel_gemm_matches_plain(cuda, C, M, K, N, fused):
-    gen = torch.Generator(device=cuda).manual_seed(0)
+# the LeNet path's conv GEMMs: the main run's five (client block over 32
+# clients, server blocks over S*B = 19*32 flattened rows) and the fused
+# run's stacked server blocks (19 selected clients)
+PATH_GEMMS = [(32, 32768, 75, 6), (1, 155648, 150, 16), (1, 38912, 400, 32),
+              (1, 9728, 800, 64), (1, 2432, 1600, 64), (19, 8192, 150, 16),
+              (19, 2048, 400, 32), (19, 512, 800, 64), (19, 128, 1600, 64)]
+
+
+def _gemm_inputs(cuda, C, M, K, N, fused, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     a = torch.randn((C, M, K), device=cuda, generator=gen)
     b = torch.randn((C, K, N), device=cuda, generator=gen) / K ** 0.5
     bias = torch.randn((C, N), device=cuda, generator=gen) if fused else None
+    return a, b, bias
+
+
+@pytest.mark.parametrize("C,M,K,N", [(2, 2048, 75, 6), (1, 1000, 150, 16),
+                                     (1, 77, 1600, 64), (3, 129, 17, 70)]
+                         + PATH_GEMMS)
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_panel_gemm_matches_plain(cuda, C, M, K, N, fused):
+    a, b, bias = _gemm_inputs(cuda, C, M, K, N, fused)
     key = "panel_gemm_bias_relu" if fused else "panel_gemm"
     before = tcc.LAUNCHES[key]
     got = tcc.panel_gemm_cuda(a, b, bias)
@@ -60,6 +78,26 @@ def test_panel_gemm_matches_plain(cuda, C, M, K, N, fused):
     torch.cuda.synchronize()
     assert tcc.LAUNCHES[key] == before + 1
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("splits,C,M,K,N", SPLIT_GEMMS)
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_panel_gemm_every_split_matches_plain_and_repeats(cuda, splits, C, M,
+                                                          K, N, fused):
+    """Each split count the planner gives (one thread-block cluster per
+    output tile, the partial tiles summed over distributed shared
+    memory): the plain version's values, and two launches bit-equal (a
+    fixed summation order)."""
+    block_m, _, planned = tcc.plan_panel_gemm(C, M, K, N,
+                                              _build.sm_count(cuda))
+    assert planned == splits and M % block_m and K % tcc.BLOCK_K
+    a, b, bias = _gemm_inputs(cuda, C, M, K, N, fused, seed=splits)
+    got = tcc.panel_gemm_cuda(a, b, bias)
+    again = tcc.panel_gemm_cuda(a, b, bias)
+    want = tcc.panel_gemm_plain(a, b, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)
 
 
 def test_client_conv_on_card_matches_cpu(cuda):
@@ -131,7 +169,8 @@ def test_trainer_iteration_on_card_matches_cpu_and_launches(cuda, mode):
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,S", [(2, 14, 2, 128), (3, 4, 4, 77),
-                                       (1, 14, 2, 1), (2, 8, 2, 200)])
+                                       (1, 14, 2, 1), (2, 8, 2, 200),
+                                       (8, 14, 2, 512), (4, 14, 2, 333)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal,window,ragged", [
@@ -167,6 +206,20 @@ def test_flash_attention_refuses_what_it_cannot_take(cuda):
     q = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         tfa.flash_attention_cuda(q, q, q)
+    # bfloat16 rows must be 16-byte aligned (TMA): a 4-element offset is not
+    buf = torch.zeros((1, 2, 8, 68), device=cuda, dtype=torch.bfloat16)
+    q = buf[..., 4:]
+    with pytest.raises(ValueError, match="8-element aligned"):
+        tfa.flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_repeats_bit_equal(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((8, 512, h, 64), device=cuda, generator=gen)
+               .to(dtype).transpose(1, 2) for h in (14, 2, 2))
+    assert torch.equal(tfa.flash_attention(q, k, v), tfa.flash_attention(q, k, v))
 
 
 def test_lm_prefill_and_decode_on_card_match_cpu(cuda):
