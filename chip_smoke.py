@@ -17,14 +17,18 @@ time:
    bound (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s fp32): the panel
    GEMMs (each with the tile and K splits it ran, two launches
    bit-equal, ``torch.bmm`` beside it, and the host time per call of
-   the wrapper and of ``torch.bmm``), masked Adam, the NT-Xent
-   statistics (forward, and the loss's
-   gradient through them) and soft-threshold (1024x1024 in float32 and
-   bfloat16, and phase 4's split activations).  Each profile starts
-   with marker kernels that take the profiler's loss of a session's
-   first device records; one that lost more is taken again with more
-   markers, and after three the time comes from CUDA events around the
-   same loop, and the output says so;
+   the wrapper and of ``torch.bmm``), the multi-tensor Adam kernel as
+   the global step launches it (server and mask leaves, one launch each)
+   and as the client step does (all clients' leaves, one launch, the
+   client order), each bit-equal to its plain version and timed against
+   one ``torch._fused_adam_`` call over the same leaves, the fused
+   NT-Xent forward and backward (and the loss's gradient through them
+   against the CPU's autograd path) and soft-threshold (1024x1024 in
+   float32 and bfloat16, and phase 4's split activations).  Each
+   profile starts with marker kernels that take the profiler's loss of a
+   session's first device records; one that lost more is taken again
+   with more markers, and after three the time comes from CUDA events
+   around the same loop, and the output says so;
 3. one teacher-forced LeNet iteration, and one global round on the
    round rung, from the same state on the card and on the CPU, compared;
 4. ``AdaSplitTrainer`` on ``lenet-cifar`` at full width (C=32, B=32,
@@ -57,7 +61,7 @@ time:
    prompt 512, 32 new tokens) and ``ServeEngine`` on 16 ragged requests
    from 4 clients with mixed (gated) and per-client (folded) batches;
    the flash launches of each run must be 24 per prefill;
-8. a ``kernels`` JSON line (all six kernels), then the final
+8. a ``kernels`` JSON line (all eight kernels), then the final
    ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the repository around it, and imports nothing
@@ -351,10 +355,11 @@ def check_gemm(cfg, hp, gen):
 
 
 def adam_leaves(cfg, hp):
-    """(shape, per_row) of every leaf that one global step of the trainer
-    run with ``hp`` updates (unmasked): the server params, with one step,
+    """(server leaf shapes, mask leaf shapes) of one global step of the
+    trainer run with ``hp`` (unmasked): the server params, with one step,
     and the S selected clients' masks, with a step per row -- unit masks
-    (per_unit) or server-shaped ones (per_scalar)."""
+    (per_unit) or server-shaped ones (per_scalar).  The step launches the
+    Adam kernel once for each list."""
     import torch
     from repro_torch.core import masks
     from repro_torch.core.orchestrator import n_selected
@@ -366,25 +371,60 @@ def adam_leaves(cfg, hp):
         m = masks.init_scalar_masks(server, S)
     else:
         m = masks.init_lenet_unit_masks(cfg, S, device="cpu")
-    return [(tuple(l.shape), False) for l in tree_leaves(server)] + \
-        [(tuple(l.shape), True) for l in tree_leaves(m)]
+    return ([tuple(l.shape) for l in tree_leaves(server)],
+            [tuple(l.shape) for l in tree_leaves(m)])
 
 
-def library_adam(leaves, kw):
+def client_adam_leaves(cfg, hp):
+    """Leaf shapes of the client step's Adam over all N_CLIENTS clients
+    (client towers and projection heads, a step per client), as the
+    trainer run with ``hp`` stacks them."""
+    import dataclasses
+    from repro_torch.core.adasplit import AdaSplitTrainer
+    from repro_torch.data.synthetic import mixed_noniid
+    from repro_torch.weights import tree_leaves
+    clients = mixed_noniid(N_CLIENTS, n_per_client=1, n_test=1)
+    tr = AdaSplitTrainer(cfg, dataclasses.replace(hp, rounds=1), clients,
+                         device="cpu")
+    return [tuple(l.shape) for l in tree_leaves(
+        {"c": tr.client_params, "p": tr.proj_params})]
+
+
+def adam_inputs(shapes, per_row, gen):
+    """(p, g, mu, nu, None) per leaf of ``shapes`` on the card, and the
+    step: a scalar, or one per row of the leading axis."""
+    import torch
+    leaves = []
+    for shape in shapes:
+        p = torch.randn(shape, device="cuda", generator=gen)
+        g = torch.randn(shape, device="cuda", generator=gen) * 1e-2
+        mu = torch.randn(shape, device="cuda", generator=gen) * 1e-3
+        nu = torch.rand(shape, device="cuda", generator=gen) * 1e-4
+        leaves.append((p, g, mu, nu, None))
+    step = torch.randint(1, 50, shapes[0][:1], device="cuda", generator=gen,
+                         dtype=torch.int32) if per_row else \
+        torch.tensor(7, device="cuda", dtype=torch.int32)
+    return leaves, step
+
+
+def library_adam(groups, kw):
     """One ``torch._fused_adam_`` call (a multi-tensor launch) over the
-    same leaves, each stacked leaf split into its rows so that every row
-    takes its own step; it updates copies in place.  Returns the call and
-    the copies (p, mu, nu) per leaf."""
+    leaves of ``groups`` (a list of (leaves, step)), each stacked leaf of
+    a per-row step split into its rows so that every row takes its own
+    step; it updates copies in place.  Returns the call and the copies
+    (p, mu, nu) per leaf, in the groups' order."""
     import torch
     lists = ([], [], [], [], [])
     copies = []
-    for p, g, mu, nu, step, _, _ in leaves:
-        cp, cm, cv = p.clone(), mu.clone(), nu.clone()
-        copies.append((cp, cm, cv))
-        rows = (lambda t: list(t.unbind(0))) if step.ndim else \
-            (lambda t: [t])
-        for out, t in zip(lists, (cp, g, cm, cv, step.to(torch.float32))):
-            out.extend(rows(t))
+    for leaves, step in groups:
+        for p, g, mu, nu, _ in leaves:
+            cp, cm, cv = p.clone(), mu.clone(), nu.clone()
+            copies.append((cp, cm, cv))
+            rows = (lambda t: list(t.unbind(0))) if step.ndim else \
+                (lambda t: [t])
+            stepf = step.to(torch.float32)
+            for out, t in zip(lists, (cp, g, cm, cv, stepf)):
+                out.extend(rows(t))
     ps, gs, ms, vs, steps = lists
     steps = [s.clone() for s in steps]
 
@@ -395,51 +435,48 @@ def library_adam(leaves, kw):
     return call, copies
 
 
-def check_adam(cfg, hp, gen, label):
-    """The unmasked kernel over one global step's leaves against its
-    plain version and against the library's multi-tensor Adam; then the
-    masked variant on the largest stacked leaf."""
+def adam_row(groups, kw, client_order, what):
+    """The multi-tensor Adam kernel over ``groups`` (a list of (leaves,
+    step), one launch each) against its plain version on the same inputs
+    (bit-equal, and two launches bit-equal) and against one
+    ``torch._fused_adam_`` call over the same leaves; device times of the
+    kernel, the plain version and the library call, and the bound."""
     import torch
     from repro_torch.kernels import masked_adam as ma
-    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
-    leaves, tot = [], {"bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0}
-    for shape, per_row in adam_leaves(cfg, hp):
-        p = torch.randn(shape, device="cuda", generator=gen)
-        g = torch.randn(shape, device="cuda", generator=gen) * 1e-2
-        mu = torch.randn(shape, device="cuda", generator=gen) * 1e-3
-        nu = torch.rand(shape, device="cuda", generator=gen) * 1e-4
-        step = torch.randint(1, 50, shape[:1], device="cuda", generator=gen,
-                             dtype=torch.int32) if per_row else \
-            torch.tensor(7, device="cuda", dtype=torch.int32)
+    prepared = []
+    tot = {"bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0}
+    for leaves, step in groups:
         b1t, b2t = ma.bias_corrections(step, kw["b1"], kw["b2"])
-        leaves.append((p, g, mu, nu, step, b1t, b2t))
-        got = ma.masked_adam_cuda(p, g, mu, nu, None, b1t=b1t, b2t=b2t, **kw)
-        want = ma.masked_adam_plain(p, g, mu, nu, None, b1t=b1t, b2t=b2t,
-                                    **kw)
-        torch.cuda.synchronize()
-        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
-        if not err <= ADAM_TOL:
-            raise AssertionError(f"masked_adam {shape}: max abs err {err}")
-        tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        tot["bytes"] += 4.0 * (7 * p.numel() + 2 * b1t.numel())
-        tot["flops"] += 15.0 * p.numel()
+        prepared.append((leaves, dict(kw, b1t=b1t, b2t=b2t)))
+        for p, *_ in leaves:
+            tot["bytes"] += 4.0 * 7 * p.numel()
+            tot["flops"] += 15.0 * p.numel()
+        tot["bytes"] += 4.0 * 2 * b1t.numel()
 
     def kernel_step():
-        for p, g, mu, nu, _, b1t, b2t in leaves:
-            ma.masked_adam_cuda(p, g, mu, nu, None, b1t=b1t, b2t=b2t, **kw)
+        return [ma.adam_multi_cuda(leaves, client_order=client_order, **k)
+                for leaves, k in prepared]
 
     def plain_step():
-        for p, g, mu, nu, _, b1t, b2t in leaves:
-            ma.masked_adam_plain(p, g, mu, nu, None, b1t=b1t, b2t=b2t, **kw)
-
-    call, copies = library_adam(leaves, kw)
+        return [ma.adam_multi_plain(leaves, client_order=client_order, **k)
+                for leaves, k in prepared]
+    got, again, want = kernel_step(), kernel_step(), plain_step()
+    torch.cuda.synchronize()
+    for outs in (got, again):
+        for a, b in zip(outs, want):
+            for x, y in zip(a, b):
+                err = max(float((u - v).abs().max())
+                          for u, v in zip(x, y))
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                if not all(torch.equal(u, v) for u, v in zip(x, y)):
+                    raise AssertionError(f"{what}: kernel not bit-equal to "
+                                         f"its plain version ({err})")
+    call, copies = library_adam(groups, kw)
     call()
-    lib_err = 0.0
-    for (p, g, mu, nu, _, b1t, b2t), got in zip(leaves, copies):
-        want = ma.masked_adam_plain(p, g, mu, nu, None, b1t=b1t, b2t=b2t,
-                                    **kw)
-        lib_err = max(lib_err, max(float((x - y).abs().max())
-                                   for x, y in zip(got, want)))
+    flat_want = [t for outs in want for t in outs]
+    lib_err = max(max(float((x - y).abs().max())
+                      for x, y in zip(got_l, want_l))
+                  for got_l, want_l in zip(copies, flat_want))
     if not lib_err <= LIBRARY_ADAM_TOL:
         raise AssertionError(f"torch._fused_adam_ disagrees: {lib_err}")
     tot["ms"] = device_ms(kernel_step, 10)
@@ -447,74 +484,169 @@ def check_adam(cfg, hp, gen, label):
     tot["library_ms"] = device_ms(call, 10)
     tot["bound_ms"] = bound(tot["bytes"], tot["flops"])[0]
     host_ms, lib_host_ms = time_ms(kernel_step, 10), time_ms(call, 10)
-    print(f"  masked_adam [{label}] one global step, {len(leaves)} leaves "
-          f"({len(leaves)} launches): max_abs_err={tot['max_abs_err']:.3e} "
-          f"device ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
-          f"fused_adam_ms={tot['library_ms']:.4f} (one call, "
-          f"max_abs_err vs plain {lib_err:.3e}) bound_ms={tot['bound_ms']:.4f}"
-          f"; host clock incl. launches: kernel {host_ms:.4f} ms, "
-          f"fused_adam {lib_host_ms:.4f} ms")
+    n = sum(len(leaves) for leaves, _ in groups)
+    print(f"  {what}, {n} leaves ({len(groups)} launches, bit-equal to "
+          f"plain, repeats bit-equal): device ms={tot['ms']:.4f} "
+          f"plain_ms={tot['plain_ms']:.4f} fused_adam_ms="
+          f"{tot['library_ms']:.4f} (one call, max_abs_err vs plain "
+          f"{lib_err:.3e}; kernel below it: "
+          f"{tot['ms'] < tot['library_ms']}) bound_ms={tot['bound_ms']:.4f}"
+          f" ratio={tot['ms'] / tot['bound_ms']:.1f}x; host clock incl. "
+          f"launches: kernel {host_ms:.4f} ms, fused_adam {lib_host_ms:.4f}"
+          " ms")
+    return tot
 
-    # the masked variant (tests use it; the path does not)
-    p, g, mu, nu, _, b1t, b2t = max(
-        (lf for lf in leaves if lf[4].ndim), key=lambda lf: lf[0].numel())
+
+def check_adam(cfg, hp, gen, label):
+    """Masked Adam over one global step's leaves as the step launches it
+    (the server leaves with one step, the mask leaves with a step per
+    row: two launches) against its plain version and the library's
+    multi-tensor Adam; then the masked variant on the largest mask
+    leaf."""
+    import torch
+    from repro_torch.kernels import masked_adam as ma
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+    server, masks = adam_leaves(cfg, hp)
+    groups = [adam_inputs(server, False, gen), adam_inputs(masks, True, gen)]
+    tot = adam_row(groups, kw, False, f"masked_adam [{label}] one global "
+                   "step")
+
+    # the masked variant (tests and kernels/ops.py use it; the path does not)
+    leaves, step = groups[1]
+    p, g, mu, nu, _ = max(leaves, key=lambda lf: lf[0].numel())
     mask = torch.rand(p.shape, device="cuda", generator=gen)
+    b1t, b2t = ma.bias_corrections(step, kw["b1"], kw["b2"])
     got = ma.masked_adam_cuda(p, g, mu, nu, mask, b1t=b1t, b2t=b2t, **kw)
     want = ma.masked_adam_plain(p, g, mu, nu, mask, b1t=b1t, b2t=b2t, **kw)
     torch.cuda.synchronize()
-    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
-    if not err <= ADAM_TOL:
-        raise AssertionError(f"masked_adam masked {tuple(p.shape)}: {err}")
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"masked_adam masked {tuple(p.shape)}: not "
+                             "bit-equal to its plain version")
     ms = device_ms(lambda: ma.masked_adam_cuda(
         p, g, mu, nu, mask, b1t=b1t, b2t=b2t, **kw), 10)
     n = p.numel()
     print(f"  masked_adam [{label}] masked variant {tuple(p.shape)}: "
-          f"max_abs_err={err:.3e} device ms={ms:.4f} bound_ms="
+          f"bit-equal to plain, device ms={ms:.4f} bound_ms="
           f"{bound(4.0 * 8 * n + 8 * p.shape[0], 16.0 * n)[0]:.4f}")
     return tot
 
 
+def check_client_adam(cfg, hp, gen):
+    """The client step's Adam (``optim.adam.adam_update``'s rounding
+    order) over all clients' leaves with a step per client: one launch,
+    against its plain version and the library's multi-tensor Adam."""
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+    return adam_row([adam_inputs(client_adam_leaves(cfg, hp), True, gen)],
+                    kw, True, f"client_adam C={N_CLIENTS} one client step")
+
+
 def check_ntxent(cfg, hp, gen):
-    """The NT-Xent statistics at the client step's (C, B, D) against
-    their plain version, and the loss's gradient through the kernel
-    against the same loss on the CPU (plain statistics); one library call
-    computes no such statistics, so there is no library time."""
+    """The fused NT-Xent forward (row norms, statistics, loss) and
+    backward (dq with respect to the raw projections) at the client
+    step's (C, B, D), each against its plain version on the card, and the
+    loss's gradient through ``ntxent_loss`` on the card against CPU
+    autograd of the same loss in float64 (``ntxent_loss_f64``), so that
+    the witness's own rounding stays far below the tolerance; the float32
+    CPU path's distance from it is printed.  On a failure the inputs and
+    the gradients go to ``build/ntxent_grad_failure.pt``.  One library
+    call computes neither, so there is no library time.  Returns the two
+    rows."""
     import torch
     from repro_torch.kernels import ntxent as nt
     C, B, D = N_CLIENTS, hp.batch_size, hp.proj_dim
     raw = torch.randn((C, B, D), device="cuda", generator=gen)
-    q = raw / (torch.linalg.vector_norm(raw, dim=-1, keepdim=True) + 1e-8)
     y = torch.randint(0, cfg.n_classes, (C, B), device="cuda",
                       generator=gen, dtype=torch.int32)
-    got = nt.ntxent_stats_cuda(q, y, hp.tau)
-    want = nt.ntxent_stats_plain(q, y, hp.tau)
+    d_loss = torch.ones((C,), device="cuda")      # the trainer's sum
+    got = nt.ntxent_forward_cuda(raw, y, hp.tau)
+    want = nt.ntxent_loss_forward_plain(raw, y, hp.tau)
+    again = nt.ntxent_forward_cuda(raw, y, hp.tau)
+    norms, cnt = got[4], got[3]
+    dq = nt.ntxent_backward_cuda(raw, y, norms, cnt, d_loss, hp.tau)
+    dq_again = nt.ntxent_backward_cuda(raw, y, norms, cnt, d_loss,
+                                       hp.tau)
+    dq_plain = nt.ntxent_loss_backward_plain(raw, y, d_loss, hp.tau)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     scale = max(1.0, max(float(b.abs().max()) for b in want))
     if not err <= NTXENT_TOL * scale:
-        raise AssertionError(f"ntxent_stats: max abs err {err}")
+        raise AssertionError(f"ntxent forward: max abs err {err}")
+    b_err = float((dq - dq_plain).abs().max())
+    b_scale = float(dq_plain.abs().max())
+    if not b_err <= NTXENT_TOL * b_scale:
+        raise AssertionError(f"ntxent backward: max abs err {b_err}")
+    if not (all(torch.equal(a, b) for a, b in zip(got, again))
+            and torch.equal(dq, dq_again)):
+        raise AssertionError("ntxent: two launches differ")
     qg = raw.clone().requires_grad_(True)
     nt.ntxent_loss(qg, y, hp.tau).sum().backward()
     qc = raw.cpu().requires_grad_(True)
     nt.ntxent_loss(qc, y.cpu(), hp.tau).sum().backward()
-    g_err = float((qg.grad.cpu() - qc.grad).abs().max())
-    g_scale = float(qc.grad.abs().max())
+    q64 = raw.detach().cpu().double().requires_grad_(True)
+    ntxent_loss_f64(q64, y.cpu(), hp.tau).sum().backward()
+    g64 = q64.grad
+    g_err = float((qg.grad.cpu().double() - g64).abs().max())
+    g_scale = float(g64.abs().max())
+    # the closed form in torch ops on the card and the float32 CPU path
+    # against the same witness
+    plain_err = float((dq_plain.cpu().double() - g64).abs().max())
+    cpu_err = float((qc.grad.double() - g64).abs().max())
+    print(f"  ntxent loss gradient vs float64 CPU autograd: through the "
+          f"kernels max_abs_err={g_err:.3e}, the closed-form plain version "
+          f"on the card {plain_err:.3e}, the float32 CPU path {cpu_err:.3e} "
+          f"(of {g_scale:.3e})")
     if not g_err <= NTXENT_TOL * g_scale:
-        raise AssertionError(f"ntxent_loss gradient: max abs err {g_err}")
-    ms = device_ms(lambda: nt.ntxent_stats_cuda(q, y, hp.tau), 20)
-    plain_ms = device_ms(lambda: nt.ntxent_stats_plain(q, y, hp.tau), 20)
-    nbytes = 4.0 * (C * B * D + C * B + 3 * C * B)
-    flops = 2.0 * C * B * B * D
-    bms, by = bound(nbytes, flops)
-    print(f"  ntxent_stats C={C} B={B} D={D} tau={hp.tau}: max_abs_err="
-          f"{err:.3e} (tol {NTXENT_TOL} x {scale:.3g}) loss gradient "
-          f"through the kernel vs CPU max_abs_err={g_err:.3e} (of "
-          f"{g_scale:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bms:.6f} ({by}) library: none computes the three "
-          "statistics")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "bytes": nbytes, "flops": flops,
-            "max_abs_err": err}
+        dump = ROOT / "build" / "ntxent_grad_failure.pt"
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({"raw": raw.cpu(), "y": y.cpu(), "tau": hp.tau,
+                    "grad_card": qg.grad.cpu(), "grad_cpu_f32": qc.grad,
+                    "grad_cpu_f64": g64, "dq_plain": dq_plain.cpu(),
+                    "dq_kernel": dq.cpu()}, dump)
+        raise AssertionError(f"ntxent_loss gradient: max abs err {g_err} "
+                             f"(inputs and gradients in {dump})")
+    rows = {}
+    q_bytes, stat_bytes = 4.0 * C * B * D, 4.0 * C * B
+    for name, fn, plain, nbytes, flops in (
+            ("ntxent_stats", lambda: nt.ntxent_forward_cuda(raw, y, hp.tau),
+             lambda: nt.ntxent_loss_forward_plain(raw, y, hp.tau),
+             q_bytes + stat_bytes * 5 + 4.0 * C, 2.0 * C * B * B * D),
+            ("ntxent_backward",
+             lambda: nt.ntxent_backward_cuda(raw, y, norms, cnt, d_loss,
+                                             hp.tau),
+             lambda: nt.ntxent_loss_backward_plain(raw, y, d_loss, hp.tau),
+             2 * q_bytes + stat_bytes * 3 + 4.0 * C, 4.0 * C * B * B * D)):
+        ms = device_ms(fn, 20)
+        plain_ms = device_ms(plain, 20)
+        bms, by = bound(nbytes, flops)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                      "bound_by": by, "library_ms": None, "bytes": nbytes,
+                      "flops": flops,
+                      "max_abs_err": err if name == "ntxent_stats" else b_err}
+        print(f"  {name} C={C} B={B} D={D} tau={hp.tau}: ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bms:.6f} ({by}) "
+              f"ratio={ms / bms:.0f}x library: none computes it")
+    print(f"  ntxent forward max_abs_err={err:.3e} (tol {NTXENT_TOL} x "
+          f"{scale:.3g}) backward max_abs_err={b_err:.3e} (of "
+          f"{b_scale:.3e}); two launches bit-equal; loss gradient through "
+          f"the kernels vs float64 CPU autograd max_abs_err={g_err:.3e} (of "
+          f"{g_scale:.3e})")
+    return rows
+
+
+def ntxent_loss_f64(q, y, tau):
+    """The supervised NT-Xent loss of q (C, B, D) in float64 torch ops,
+    differentiable: the rows normalised by norm + 1e-8, the diagonal
+    masked with -1e30 inside the logsumexp, per client ``sum(cnt * lse -
+    pos_sum) / max(sum(cnt), 1)`` -> (C,)."""
+    import torch
+    q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-8)
+    sim = q @ q.transpose(-1, -2) / tau
+    eye = torch.eye(q.shape[-2], dtype=torch.bool)
+    lse = torch.logsumexp(sim.masked_fill(eye, -1e30), dim=-1)
+    pos = (y[..., :, None] == y[..., None, :]) & ~eye
+    cnt = pos.sum(dim=-1).to(q.dtype)
+    pos_sum = torch.where(pos, sim, torch.zeros((), dtype=q.dtype)).sum(-1)
+    return (cnt * lse - pos_sum).sum(-1) / cnt.sum(-1).clamp(min=1.0)
 
 
 def soft_threshold_cases(cfg, hp):
@@ -737,10 +869,12 @@ def one_round(tr, iters, global_phase=True, n_rounds=1):
 
 
 def run_trainer(cfg, hp, clients, label):
-    """Train, evaluate and bill one run on its rung; the NT-Xent kernel
-    must have launched once per client step.  Then one more global round,
-    whose launches must be T times the GEMMs and Adam leaves phase 2
-    checked, its wall time per iteration, and its profile.  Returns the
+    """Train, evaluate and bill one run on its rung; the NT-Xent forward
+    and backward and the client Adam must have launched once per client
+    step.  Then one more global round, whose launches must be T times the
+    GEMMs phase 2 checked, 2T masked Adam (server, masks), and T each of
+    client Adam, NT-Xent forward and backward; its wall time per
+    iteration, and its profile.  Returns the
     run's launch counts and a snapshot of its state, meter and
     selections right after training."""
     import dataclasses
@@ -773,9 +907,11 @@ def run_trainer(cfg, hp, clients, label):
               if v is not None]
     if not all(np.isfinite(losses)) or not np.isfinite(acc):
         raise AssertionError(f"[{label}] non-finite loss or accuracy")
-    if launches["ntxent_stats"] != hp.rounds * T:
-        raise AssertionError(f"[{label}] {launches['ntxent_stats']} NT-Xent "
-                             f"launches for {hp.rounds * T} client steps")
+    steps = {k: launches[k] for k in ("ntxent_stats", "ntxent_backward",
+                                      "client_adam")}
+    if set(steps.values()) != {hp.rounds * T}:
+        raise AssertionError(f"[{label}] {steps} launches for "
+                             f"{hp.rounds * T} client steps")
 
     # one more global round on the run's rung: launches, time, profile
     run = one_round(tr, fixed_iters(clients, hp.batch_size, T))
@@ -785,11 +921,11 @@ def run_trainer(cfg, hp, clients, label):
     print(f"  [{label}] launches per global round of {T} iterations: "
           f"{json.dumps(per_round)}")
     gemm = "panel_gemm_bias_relu" if hp.fused_epilogue else "panel_gemm"
-    if (per_round[gemm], per_round["masked_adam"],
-            per_round["ntxent_stats"]) != (
-            T * len(gemm_shapes(cfg, hp)), T * len(adam_leaves(cfg, hp)), T):
+    want = {gemm: T * len(gemm_shapes(cfg, hp)), "masked_adam": 2 * T,
+            "client_adam": T, "ntxent_stats": T, "ntxent_backward": T}
+    if any(per_round[k] != v for k, v in want.items()):
         raise AssertionError(f"[{label}] the path launched other kernels "
-                             "than phase 2 checked")
+                             f"than phase 2 checked: want {want}")
     profile_calls(run, 2, label, f"global rounds ({T} iterations each)",
                   "round")
     return launches, tr, snap
@@ -1383,6 +1519,7 @@ def main() -> int:
     fused = check_gemm(cfg, runs["fused_epilogue+per_scalar"], gen)
     adam = {label: check_adam(cfg, runs[label], gen, label)
             for label in ("main", "fused_epilogue+per_scalar")}
+    client_adam = check_client_adam(cfg, runs["main"], gen)
     ntxent = check_ntxent(cfg, runs["main"], gen)
     soft = check_soft_threshold(cfg, runs["main"], gen)
     phase_done(2)
@@ -1408,7 +1545,9 @@ def main() -> int:
                 "panel_gemm_bias_relu":
                     counts["fused_epilogue+per_scalar"]["panel_gemm_bias_relu"],
                 "masked_adam": counts["main"]["masked_adam"],
+                "client_adam": counts["main"]["client_adam"],
                 "ntxent_stats": counts["main"]["ntxent_stats"],
+                "ntxent_backward": counts["main"]["ntxent_backward"],
                 "soft_threshold": api["soft_threshold"]}
     del results
     phase_done(4)
@@ -1453,8 +1592,12 @@ def main() -> int:
              "src/repro/kernels/client_conv.py:185"),
             ("masked_adam", adam["main"], src + "masked_adam.cu",
              "src/repro/kernels/masked_adam.py:36"),
-            ("ntxent_stats", ntxent, src + "ntxent.cu",
+            ("client_adam", client_adam, src + "masked_adam.cu",
+             "src/repro/optim/adam.py:25"),
+            ("ntxent_stats", ntxent["ntxent_stats"], src + "ntxent.cu",
              "src/repro/kernels/ntxent.py:60"),
+            ("ntxent_backward", ntxent["ntxent_backward"], src + "ntxent.cu",
+             "src/repro/core/losses.py:13"),
             ("soft_threshold", soft, src + "soft_threshold.cu",
              "src/repro/kernels/soft_threshold.py:23"),
             ("flash_attention", flash, src + "flash_attention.cu",

@@ -6,15 +6,16 @@ Each iteration:
 
 1. the client step runs all C clients as ONE stacked forward (the
    reference's ``vmap``): LeNet client tower -> projection head ->
-   supervised NT-Xent (eq. 5, the ``ntxent_stats`` kernel, one launch
-   for all C clients) -> plain Adam.  The loss is the sum of the C
-   per-client losses; clients share no parameters, so each client's
-   rows of the gradient are its own loss's gradient;
+   supervised NT-Xent (eq. 5: on the card one forward and one backward
+   kernel launch for all C clients) -> plain Adam (on the card one launch
+   of the multi-tensor Adam kernel for all leaves).  The loss is the sum
+   of the C per-client losses; clients share no parameters, so each
+   client's rows of the gradient are its own loss's gradient;
 2. in the global phase, UCB selects eta*N clients (eq. 6);
 3. one batched global step over the S selected clients: server CE +
    lambda*L1(masks), the server updated by fused Adam and each selected
-   client's masks by per-row fused mask-Adam (eq. 7) — both through the
-   ``masked_adam`` kernel on the card;
+   client's masks by per-row fused mask-Adam (eq. 7) — each one launch
+   of the multi-tensor ``masked_adam`` kernel on the card;
 4. the UCB state is updated and ``Meter`` bills bandwidth and compute
    (eq. 1-2).
 

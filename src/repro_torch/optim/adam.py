@@ -4,11 +4,15 @@ Moments are float32 whatever the parameter dtype.  ``state["step"]`` is
 a scalar, or an ``(S,)`` vector of per-row steps for trees of stacked
 ``(S, ...)`` leaves — the per-client step vectors of the trainer's
 client and mask optimizers, which the reference applies under ``vmap``.
+On CUDA tensors the whole update is one launch of the multi-tensor Adam
+kernel (``kernels/masked_adam.py``, in this module's rounding order);
+on CPU tensors each leaf runs ``adam_leaf_plain``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.masked_adam import adam_multi, bias_corrections
 from repro_torch.weights import tree_leaves, tree_map, tree_unflatten
 
 
@@ -23,25 +27,11 @@ def adam_init(params):
 def adam_update(params, grads, state, *, lr, b1=0.9, b2=0.999, eps=1e-8):
     """Returns (new_params, new_state); no autograd through the update."""
     step = state["step"] + 1
-    stepf = step.to(torch.float32)
-    b1t = 1.0 - torch.pow(b1, stepf)
-    b2t = 1.0 - torch.pow(b2, stepf)
-
-    def rows(c, p):
-        return c.reshape(c.shape + (1,) * (p.ndim - c.ndim))
-
-    def upd(p, g, mu, nu):
-        g = g.to(torch.float32)
-        mu = b1 * mu + (1 - b1) * g
-        nu = b2 * nu + (1 - b2) * g * g
-        mhat = mu / rows(b1t, mu)
-        nhat = nu / rows(b2t, nu)
-        delta = mhat / (torch.sqrt(nhat) + eps)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype), mu, nu
-
+    b1t, b2t = bias_corrections(step, b1, b2)
     with torch.no_grad():
-        out = [upd(p, g, m, n) for p, g, m, n in zip(
+        out = adam_multi([(p, g, m, n, None) for p, g, m, n in zip(
             tree_leaves(params), tree_leaves(grads), tree_leaves(state["mu"]),
-            tree_leaves(state["nu"]))]
+            tree_leaves(state["nu"]))], lr=lr, b1=b1, b2=b2, eps=eps,
+            b1t=b1t, b2t=b2t, client_order=True)
     new = [tree_unflatten(params, [o[i] for o in out]) for i in range(3)]
     return new[0], {"mu": new[1], "nu": new[2], "step": step}

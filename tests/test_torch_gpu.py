@@ -9,13 +9,14 @@ trainer on the CPU.  Run them there with
 Tolerances: the panel GEMM sums <= 1600 float32 products in another
 order than the plain version, split over up to 8 K ranges (1e-4 on
 values of order 1), and is bit-equal to itself launch to launch; the Adam
-kernel is built with -fmad=false and repeats the plain version's float32
-ops in the same order (1e-6 relative); the flash kernel sums its
+kernel is built with -fmad=false and repeats the plain versions' float32
+ops in the same order (1e-6 relative, and bit-equal where a test says
+so); the flash kernel sums its
 float32 dots and softmax in another order than the plain version, with
 exp2 in place of exp (2e-5 absolute on outputs of order 1 in float32;
 in bfloat16 the output is rounded to 8 bits of mantissa, 2e-2); the
-NT-Xent kernel sums its f32 dots and row sums in another order (1e-5 of
-the largest magnitude); soft-threshold is bit-equal to its plain
+NT-Xent kernels sum their f32 dots and row sums in another order (1e-5
+of the largest magnitude); soft-threshold is bit-equal to its plain
 version.  The round and epoch rungs on the card must select and bill as
 the eager rung does and make no host sync but their one fetch."""
 import dataclasses
@@ -372,3 +373,202 @@ def _lifted(fn):
         return fn()
     finally:
         torch.cuda.set_sync_debug_mode("error")
+
+
+def _adam_leaves(cuda, shapes, masked, gen):
+    out = []
+    for shape in shapes:
+        p, g, mu = (torch.randn(shape, device=cuda, generator=gen) * s
+                    for s in (1.0, 1e-2, 1e-3))
+        nu = torch.rand(shape, device=cuda, generator=gen) * 1e-4
+        mask = torch.rand(shape, device=cuda, generator=gen) \
+            if masked else None
+        out.append((p, g, mu, nu, mask))
+    return out
+
+
+@pytest.mark.parametrize("order", ["masked", "client"])
+@pytest.mark.parametrize("step", ["scalar", "per_row"])
+@pytest.mark.parametrize("n_leaves", [6, 75],
+                         ids=["one_table", "three_tables"])
+def test_adam_multi_bit_equal_to_plain_and_repeats(cuda, order, step,
+                                                   n_leaves):
+    """One launch per MAX_LEAVES leaves, bit-equal to the per-leaf plain
+    versions on the card and launch to launch: mask rows of 6 and 120
+    floats (a row boundary inside a float4), a (S,) leaf, an empty leaf,
+    rows of 4096 and 4097 floats (CHUNK multiples and not), and a view one
+    float off 16-byte alignment (the scalar path)."""
+    S = 5
+    gen = torch.Generator(device=cuda).manual_seed(n_leaves)
+    base = [(S, 6), (S, 120), (S, 5, 5, 3), (S,), (S, 0), (S, 4096),
+            (S, 4097)]
+    shapes = [base[i % len(base)] for i in range(n_leaves - 1)]
+    leaves = _adam_leaves(cuda, shapes, order == "masked", gen)
+    buf = _adam_leaves(cuda, [(S * 33 + 1,)], order == "masked", gen)[0]
+    leaves.append(tuple(None if t is None else t[1:].view(S, 33)
+                        for t in buf))
+    st = torch.randint(1, 60, (S,), device=cuda, generator=gen,
+                       dtype=torch.int32) if step == "per_row" else \
+        torch.tensor(9, device=cuda, dtype=torch.int32)
+    b1t, b2t = tma.bias_corrections(st, 0.9, 0.999)
+    client = order == "client"
+    key = "client_adam" if client else "masked_adam"
+    before = tma.LAUNCHES[key]
+    got = tma.adam_multi_cuda(leaves, b1t=b1t, b2t=b2t, client_order=client,
+                              **KW)
+    again = tma.adam_multi_cuda(leaves, b1t=b1t, b2t=b2t,
+                                client_order=client, **KW)
+    want = tma.adam_multi_plain(leaves, b1t=b1t, b2t=b2t,
+                                client_order=client, **KW)
+    torch.cuda.synchronize()
+    filled = sum(1 for leaf in leaves if leaf[0].numel())
+    assert tma.LAUNCHES[key] == before + 2 * -(-filled // tma.MAX_LEAVES)
+    for a, b, c in zip(got, again, want):
+        for x, y, z in zip(a, b, c):
+            assert torch.equal(x, z) and torch.equal(x, y)
+
+
+def test_adam_update_on_card_is_one_launch_bit_equal(cuda):
+    """The client step's ``adam_update`` on the card: one launch for a
+    stacked tree with per-client steps, bit-equal to its plain version
+    (the CPU path's ops on the card) and to itself."""
+    from repro_torch.optim.adam import adam_init, adam_update
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    C = 6
+    params = {"c": [torch.randn((C, 5, 5, 3, 6), device=cuda, generator=gen),
+                    torch.randn((C, 6), device=cuda, generator=gen)],
+              "p": {"w": torch.randn((C, 150, 64), device=cuda,
+                                     generator=gen)}}
+    grads = {"c": [torch.randn_like(t) * 1e-2 for t in params["c"]],
+             "p": {"w": torch.randn_like(params["p"]["w"]) * 1e-2}}
+    st = adam_init(params)
+    st["step"] = torch.tensor([0, 3, 1, 8, 2, 5], dtype=torch.int32,
+                              device=cuda)
+    before = tma.LAUNCHES["client_adam"]
+    new_p, new_s = adam_update(params, grads, st, lr=1e-3)
+    again_p, _ = adam_update(params, grads, st, lr=1e-3)
+    torch.cuda.synchronize()
+    assert tma.LAUNCHES["client_adam"] == before + 2
+    b1t, b2t = tma.bias_corrections(st["step"] + 1, 0.9, 0.999)
+    for (p, g, mu, nu), got, gm, gv, rep in zip(
+            zip(*(tree_leaves(t) for t in (params, grads, st["mu"],
+                                           st["nu"]))),
+            tree_leaves(new_p), tree_leaves(new_s["mu"]),
+            tree_leaves(new_s["nu"]), tree_leaves(again_p)):
+        want = tma.adam_leaf_plain(p, g, mu, nu, b1t=b1t, b2t=b2t, **KW)
+        assert torch.equal(got, want[0]) and torch.equal(got, rep)
+        assert torch.equal(gm, want[1]) and torch.equal(gv, want[2])
+
+
+
+def test_adam_update_on_card_takes_bf16_and_strided_leaves(cuda):
+    """A bfloat16 leaf and a transposed (strided) leaf still go through the
+    one launch, each bit-equal to its plain version on the same leaf, with
+    the new p in the leaf's own dtype."""
+    from repro_torch.optim.adam import adam_init, adam_update
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    C = 4
+    params = {"h": torch.randn((C, 40, 9), device=cuda, generator=gen)
+              .to(torch.bfloat16),
+              "t": torch.randn((C, 33, 17), device=cuda, generator=gen)
+              .transpose(1, 2)}
+    grads = {"h": torch.randn((C, 40, 9), device=cuda, generator=gen) * 1e-2,
+             "t": (torch.randn((C, 33, 17), device=cuda, generator=gen)
+                   * 1e-2).transpose(1, 2)}
+    st = adam_init(params)
+    st["mu"]["t"] = torch.randn((C, 33, 17), device=cuda,
+                                generator=gen).transpose(1, 2) * 1e-3
+    st["step"] = torch.tensor([0, 2, 5, 1], dtype=torch.int32, device=cuda)
+    assert not params["t"].is_contiguous()
+    before = tma.LAUNCHES["client_adam"]
+    new_p, new_s = adam_update(params, grads, st, lr=1e-3)
+    torch.cuda.synchronize()
+    assert tma.LAUNCHES["client_adam"] == before + 1
+    b1t, b2t = tma.bias_corrections(st["step"] + 1, 0.9, 0.999)
+    for k in ("h", "t"):
+        want = tma.adam_leaf_plain(params[k], grads[k], st["mu"][k],
+                                   st["nu"][k], b1t=b1t, b2t=b2t, **KW)
+        assert new_p[k].dtype == params[k].dtype
+        assert torch.equal(new_p[k], want[0])
+        assert torch.equal(new_s["mu"][k], want[1])
+        assert torch.equal(new_s["nu"][k], want[2])
+
+
+def test_ntxent_stats_on_card_is_the_kernel_without_gradient(cuda):
+    """``ntxent_stats`` on CUDA tensors is the forward kernel's statistics
+    (one launch, bit-equal to ``ntxent_stats_cuda``) and refuses a q that
+    needs a gradient, as the TPU kernel has none."""
+    raw, y, _ = _ntxent_inputs(cuda, 3, 16, 32, seed=5)
+    q = raw / (torch.linalg.vector_norm(raw, dim=-1, keepdim=True) + 1e-8)
+    before = tnt.LAUNCHES["ntxent_stats"]
+    got = tnt.ntxent_stats(q, y)
+    want = tnt.ntxent_stats_cuda(q, y)
+    torch.cuda.synchronize()
+    assert tnt.LAUNCHES["ntxent_stats"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="no gradient"):
+        tnt.ntxent_stats(q.clone().requires_grad_(True), y)
+
+def _ntxent_inputs(cuda, C, B, D, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    raw = torch.randn((C, B, D), device=cuda, generator=gen)
+    y = torch.randint(0, 3, (C, B), device=cuda, generator=gen,
+                      dtype=torch.int32)
+    y[:, 0] = 99                                # a row with no positive
+    if C > 1:
+        y[-1] = torch.arange(B, device=cuda)    # a client of lone rows
+    d_loss = torch.rand((C,), device=cuda, generator=gen) + 0.5
+    return raw, y, d_loss
+
+
+@pytest.mark.parametrize("C,B,D", [(32, 32, 64), (3, 7, 16), (2, 33, 64),
+                                   (1, 2, 256), (4, 100, 48), (2, 128, 256)])
+@pytest.mark.parametrize("normalize", [True, False], ids=["norm", "raw"])
+def test_ntxent_fused_forward_backward_match_plain(cuda, C, B, D, normalize):
+    """The fused forward (loss, statistics, norms) and backward (dq) each
+    one launch, against their plain versions on the card and the loss's
+    gradient against the CPU autograd path (1e-5 of the largest
+    magnitude); a client of lone rows has loss and gradient 0; two
+    launches bit-equal."""
+    raw, y, dl = _ntxent_inputs(cuda, C, B, D, seed=B + D)
+    if not normalize:
+        raw = raw / D ** 0.5                    # rows of norm ~1
+    f0, b0 = tnt.LAUNCHES["ntxent_stats"], tnt.LAUNCHES["ntxent_backward"]
+    got = tnt.ntxent_forward_cuda(raw, y, 0.07, normalize)
+    want = tnt.ntxent_loss_forward_plain(raw, y, 0.07, normalize)
+    norms = got[4]
+    dq = tnt.ntxent_backward_cuda(raw, y, norms, got[3], dl, 0.07,
+                                  normalize)
+    dq_again = tnt.ntxent_backward_cuda(raw, y, norms, got[3], dl,
+                                        0.07, normalize)
+    dq_plain = tnt.ntxent_loss_backward_plain(raw, y, dl, 0.07, normalize)
+    torch.cuda.synchronize()
+    assert (tnt.LAUNCHES["ntxent_stats"], tnt.LAUNCHES["ntxent_backward"]) \
+        == (f0 + 1, b0 + 2)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(
+            1.0, float(b.abs().max())))
+    assert torch.equal(dq, dq_again)
+    torch.testing.assert_close(dq, dq_plain, rtol=0, atol=1e-5 * float(
+        dq_plain.abs().max()))
+    again = tnt.ntxent_forward_cuda(raw, y, 0.07, normalize)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    if C > 1:
+        assert float(got[0][-1]) == 0.0 and float(dq[-1].abs().max()) == 0.0
+    qg = raw.clone().requires_grad_(True)
+    (tnt.ntxent_loss(qg, y, 0.07, normalize) * dl).sum().backward()
+    qc = raw.cpu().requires_grad_(True)
+    (tnt.ntxent_loss(qc, y.cpu(), 0.07, normalize) * dl.cpu()).sum(
+        ).backward()
+    torch.testing.assert_close(qg.grad.cpu(), qc.grad, rtol=0, atol=1e-5 * (
+        float(qc.grad.abs().max()) + 1e-30))
+
+
+def test_ntxent_refuses_more_rows_than_one_cta_takes(cuda):
+    q = torch.zeros((2, tnt.MAX_B + 1, 16), device=cuda)
+    y = torch.zeros((2, tnt.MAX_B + 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rows per client"):
+        tnt.ntxent_loss(q, y)

@@ -131,3 +131,154 @@ def test_cpu_tensors_take_the_plain_version_and_cuda_wrapper_refuses_them():
         tnt.ntxent_stats_cuda(torch.from_numpy(q),
                               torch.from_numpy(y).long())
     assert tnt.LAUNCHES["ntxent_stats"] == 0
+
+
+
+def test_stats_off_the_cpu_never_take_the_plain_version():
+    """Off the CPU (here the meta device) ``ntxent_stats`` goes to the
+    CUDA wrapper, which refuses a non-CUDA tensor, and refuses first a q
+    that needs a gradient: no tensor off the CPU reaches a plain
+    version."""
+    q = torch.zeros((2, 4, 8), device="meta")
+    y = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no gradient"):
+        tnt.ntxent_stats(q.requires_grad_(True), y)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tnt.ntxent_stats(q.detach(), y)
+
+# --- the fused CUDA path's plain versions, and the CPU path unchanged ---
+
+def _parent_loss(q, labels, tau):
+    """``ntxent_loss`` on the CPU as the port had it before the fused
+    kernels, verbatim (its ``autograd.Function`` included): the CPU path
+    must stay bit-for-bit this."""
+    def similarity(q):
+        B = q.shape[-2]
+        sim = torch.matmul(q, q.transpose(-1, -2)) / tau
+        return sim, torch.eye(B, dtype=torch.bool, device=q.device)
+
+    def stats_plain(q):
+        sim, eye = similarity(q.to(torch.float32))
+        lse = torch.logsumexp(sim.masked_fill(eye, -1e30), dim=-1)
+        pos = (labels[..., :, None] == labels[..., None, :]) & ~eye
+        zero = torch.zeros((), device=q.device)
+        pos_sum = torch.where(pos, sim, zero).sum(dim=-1)
+        return lse, pos_sum, pos.sum(dim=-1).to(torch.float32)
+
+    class Stats(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q):
+            lse, pos_sum, pos_cnt = stats_plain(q)
+            ctx.save_for_backward(q, lse)
+            ctx.mark_non_differentiable(pos_cnt)
+            return lse, pos_sum, pos_cnt
+
+        @staticmethod
+        def backward(ctx, d_lse, d_pos_sum, _):
+            q, lse = ctx.saved_tensors
+            sim, eye = similarity(q)
+            p = torch.exp(sim.masked_fill(eye, float("-inf"))
+                          - lse[..., None])
+            pos = (labels[..., :, None] == labels[..., None, :]) & ~eye
+            dsim = d_lse[..., None] * p + d_pos_sum[..., None] * pos
+            return torch.matmul(dsim + dsim.transpose(-1, -2), q) / tau
+
+    q = q.to(torch.float32)
+    q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-8)
+    lse, pos_sum, pos_cnt = Stats.apply(q)
+    n_pos = pos_cnt.sum(dim=-1).clamp(min=1.0)
+    return (pos_cnt * lse - pos_sum).sum(dim=-1) / n_pos
+
+
+def _d_loss(seed):
+    return np.random.default_rng(seed).uniform(0.5, 2.0, size=C).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("B,D,tau", CASES, ids=IDS)
+def test_cpu_path_bit_equal_to_parent(B, D, tau):
+    """On the CPU the loss, the statistics and the gradient through the
+    autograd path are the port's outputs before the fused kernels, bit
+    for bit (tolerance 0); no kernel launches."""
+    q, y = _inputs(B, D, seed=3)
+    dl = torch.from_numpy(_d_loss(B))
+    tnt.reset_launches()
+    got_q = torch.from_numpy(q).requires_grad_(True)
+    got = tnt.ntxent_loss(got_q, torch.from_numpy(y), tau)
+    (got * dl).sum().backward()
+    want_q = torch.from_numpy(q).requires_grad_(True)
+    want = _parent_loss(want_q, torch.from_numpy(y), tau)
+    (want * dl).sum().backward()
+    assert torch.equal(got, want) and torch.equal(got_q.grad, want_q.grad)
+    qn = torch.from_numpy(_normalized(q))
+    for a, b in zip(tnt.ntxent_stats_plain(qn, torch.from_numpy(y), tau),
+                    _parent_stats(qn, torch.from_numpy(y), tau)):
+        assert torch.equal(a, b)
+    assert tnt.LAUNCHES == {"ntxent_stats": 0, "ntxent_backward": 0}
+
+
+def _parent_stats(q, labels, tau):
+    B = q.shape[-2]
+    sim = torch.matmul(q, q.transpose(-1, -2)) / tau
+    eye = torch.eye(B, dtype=torch.bool)
+    lse = torch.logsumexp(sim.masked_fill(eye, -1e30), dim=-1)
+    pos = (labels[..., :, None] == labels[..., None, :]) & ~eye
+    pos_sum = torch.where(pos, sim, torch.zeros(())).sum(dim=-1)
+    return lse, pos_sum, pos.sum(dim=-1).to(torch.float32)
+
+
+@pytest.mark.parametrize("B,D,tau", CASES, ids=IDS)
+def test_forward_plain_matches_cpu_loss(B, D, tau):
+    """The forward kernel's plain version: the CPU loss bit for bit, the
+    statistics of the normalised rows and their norms."""
+    q, y = _inputs(B, D, seed=4)
+    qt, yt = torch.from_numpy(q), torch.from_numpy(y)
+    loss, lse, pos_sum, pos_cnt, norms = tnt.ntxent_loss_forward_plain(
+        qt, yt, tau)
+    assert torch.equal(loss, tnt.ntxent_loss(qt, yt, tau))
+    want = tnt.ntxent_stats_plain(torch.from_numpy(_normalized(q)), yt, tau)
+    for a, b in zip((lse, pos_sum, pos_cnt), want):
+        _close(a.numpy(), b.numpy())
+    _close(norms.numpy(), np.linalg.norm(q, axis=-1))
+    raw = tnt.ntxent_loss_forward_plain(qt, yt, tau, normalize=False)
+    assert raw[4] is None
+    assert torch.equal(raw[0], tnt.ntxent_loss(qt, yt, tau, normalize=False))
+
+
+@pytest.mark.parametrize("normalize", [True, False], ids=["norm", "raw"])
+@pytest.mark.parametrize("B,D,tau", CASES, ids=IDS)
+def test_backward_plain_matches_autograd_and_jax(B, D, tau, normalize):
+    """The backward kernel's plain version against torch autograd through
+    the CPU path and ``jax.grad`` of the reference: the Pallas kernel's
+    oracle (``ref.ntxent_stats_ref``, as ``kernels.ntxent.ntxent_loss``
+    wraps the kernel; JAX cannot differentiate the Pallas call itself)
+    and ``core.losses.ntxent_supervised``.  Rows without a positive in
+    every case; at B=2 no row has one and the gradient is exactly 0."""
+    q, y = _inputs(B, D, seed=5)
+    dl = _d_loss(B + D)
+    got = tnt.ntxent_loss_backward_plain(
+        torch.from_numpy(q), torch.from_numpy(y), torch.from_numpy(dl), tau,
+        normalize=normalize).numpy()
+    qt = torch.from_numpy(q).requires_grad_(True)
+    loss = tnt.ntxent_loss(qt, torch.from_numpy(y), tau, normalize=normalize)
+    (loss * torch.from_numpy(dl)).sum().backward()
+
+    def oracle(qq, yy):
+        if normalize:
+            qq = qq / (jnp.linalg.norm(qq, axis=-1, keepdims=True) + 1e-8)
+        return jref.ntxent_loss_from_stats(*jref.ntxent_stats_ref(qq, yy,
+                                                                  tau))
+
+    def total(qq, loss_fn):
+        per = jax.vmap(loss_fn)(qq, jnp.asarray(y))
+        return jnp.sum(per * jnp.asarray(dl))
+    wants = [qt.grad.numpy(), np.asarray(jax.grad(total)(jnp.asarray(q),
+                                                         oracle))]
+    if normalize:
+        wants.append(np.asarray(jax.grad(total)(
+            jnp.asarray(q), lambda a, b: jntxent_supervised(a, b, tau))))
+    for c in range(C):
+        if B == 2:
+            np.testing.assert_array_equal(got[c], 0.0)
+        for want in wants:
+            _close(got[c], want[c])
