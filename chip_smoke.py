@@ -44,8 +44,10 @@ time:
    (``kernels/ops.py``, the path of soft-threshold) on the main run's
    own tensors;
 5. the flash-attention kernel at every prefill shape of phase 7's
-   serving runs (derived from ``serving_runs()`` through the engine's
-   own batching policy; bf16, causal, kv_len where ragged) and at
+   serving runs (derived from ``serving_runs()`` through the engines'
+   own batching and bucketing; bf16, causal, kv_len where ragged; each
+   distinct B=1 admission prefill of the continuous runs, buckets 8 to
+   512, with its totals on a line of their own) and at
    phase 6's f32 shape, against its plain version, with device times,
    one ``scaled_dot_product_attention`` call as the library yardstick
    (and the kernel's ratio to it), host times per call of the wrapper
@@ -56,13 +58,24 @@ time:
    and by less on average;
 6. qwen2-0.5b at full width cut to 2 layers, strict fp32: a prefill and
    teacher-forced decode steps on the card and on the CPU, compared;
+   then a ragged six-request trace of mixed clients through
+   ``ContinuousEngine`` (3 slots), ``ServeEngine`` one request at a
+   time and ``ServeEngine`` with mixed batches, on the card: the greedy
+   tokens must be equal (the solo runs' smallest top-2 logit gap is
+   printed, and where an engine parts from solo, the gap there);
 7. serving qwen2-0.5b at full width, all 24 layers, bf16: the session
    CLI (``repro_torch.launch.serve``, client 0's mask folded, B=8,
-   prompt 512, 32 new tokens) and ``ServeEngine`` on 16 ragged requests
-   from 4 clients with mixed (gated) and per-client (folded) batches;
-   the flash launches of each run must be 24 per prefill;
-8. a ``kernels`` JSON line (all eight kernels), then the final
-   ``{"ok": true, ...}`` line.
+   prompt 512, 32 new tokens), ``ServeEngine`` on 16 ragged requests
+   from 4 clients with mixed (gated) and per-client (folded) batches,
+   and ``ContinuousEngine`` (8 slots, cache 576) on the same 16
+   requests and on 24 requests that reach every prompt bucket and
+   arrive between steps; each continuous run's ``EngineStats`` must be
+   its scheduler dry run's, every step that neither admits nor
+   completes runs under ``sync_debug_mode("error")``, and one
+   eight-slot gated decode step is profiled; the flash launches of
+   each run must be 24 per prefill;
+8. a ``kernels`` JSON line (all eight kernels; flash's launches those of
+   every phase 7 run), then the final ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the repository around it, and imports nothing
 of JAX or of the JAX package.
@@ -1135,25 +1148,42 @@ def profile_calls(fn, n, label, what, unit):
 # ---------------------------------------------------------------------------
 
 SERVE_ARCH = "qwen2-0.5b"
+ADMISSION = "admission"         # label of the continuous runs' B=1 prefills
+# what sync_debug_mode("warn") says of each host sync it sees
+SYNC_WARNING = "called a synchronizing CUDA operation"
 LM_TWO_DEVICE = {"n_layers": 2, "batch": 2, "prompt_len": 64, "decode": 4}
 
 
 def serving_runs():
     """Phase 7's serving runs: the session CLI (client 0 of 4, its mask
-    folded), and the engine's 16 requests from 4 clients (prompt lengths
-    128-512, 16-32 new tokens) in both batching modes.  Phase 5 checks
-    the flash kernel at the shapes these runs give it."""
+    folded), the FIFO engine's 16 requests from 4 clients (prompt lengths
+    128-512, 16-32 new tokens) in both batching modes, and two
+    continuous-engine runs (8 slots, cache 576): the same 16 requests,
+    and 24 requests whose prompts reach every bucket (5-512 tokens,
+    budgets 1-48) arriving in chunks of 5, 3, 1, 7 before each step.
+    Phase 5 checks the flash kernel at the shapes these runs give it."""
     import numpy as np
     rng = np.random.default_rng(0)
     n_clients = 4
+    requests = [(i % n_clients, int(rng.integers(128, 513)),
+                 int(rng.integers(16, 33))) for i in range(16)]
+    lens = [5, 12, 23, 47, 90, 170, 300, 512]
+    budgets = [1, 48, 7, 33, 2, 20, 40, 12]
     return {
         "session": {"batch": 8, "prompt_len": 512, "gen": 32, "client": 0,
                     "n_clients": n_clients},
-        "requests": [(i % n_clients, int(rng.integers(128, 513)),
-                      int(rng.integers(16, 33))) for i in range(16)],
+        "requests": requests,
         "n_clients": n_clients,
         "engines": {"mixed": {"max_batch": 8, "mixed_batches": True},
-                    "per_client": {"max_batch": 8, "mixed_batches": False}}}
+                    "per_client": {"max_batch": 8, "mixed_batches": False}},
+        "continuous": {
+            "fifo traffic": {"requests": requests, "seed": 1, "chunks": None,
+                             "max_batch": 8, "cache_len": 576},
+            "every bucket": {
+                "requests": [(i % n_clients, lens[i % 8], budgets[3 * i % 8])
+                             for i in range(24)],
+                "seed": 2, "chunks": [5, 3, 1, 7], "max_batch": 8,
+                "cache_len": 576}}}
 
 
 def session_argv(runs):
@@ -1163,34 +1193,70 @@ def session_argv(runs):
             "--prompt-len", str(s["prompt_len"]), "--gen", str(s["gen"])]
 
 
-def make_requests(runs, vocab_size):
+def make_requests(spec, vocab_size, seed=1):
+    """Requests of ``spec`` ((client, prompt length, budget) each), their
+    prompts drawn from ``seed``."""
     import numpy as np
     from repro_torch.serve import Request
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     return [Request(i, c, rng.integers(0, vocab_size, n).astype(np.int32),
                     new)
-            for i, (c, n, new) in enumerate(runs["requests"])]
+            for i, (c, n, new) in enumerate(spec)]
+
+
+def fifo_shapes(spec, label, **kw):
+    """(label, B, S, kv_len) of each prefill ``ServeEngine(**kw)`` gives
+    the flash kernel on the requests of ``spec``: each batch as the
+    engine's own policy forms it, right-padded to its longest prompt
+    (kv_len the prompt lengths when ragged, else None)."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(None, None, device="cpu", **kw)
+    for r in make_requests(spec, 2):
+        eng.submit(r)
+    out = []
+    while eng.queue:
+        lens = [len(r.prompt) for r in eng._next_batch()]
+        out.append((f"{label} batch {len(out)}", len(lens), max(lens),
+                    None if len(set(lens)) == 1 else lens))
+    return out
+
+
+def admission_shapes(lens_and_caps, label):
+    """(label, B, S, kv_len) of each distinct admission prefill of the
+    continuous engine, for prompts of length L into an engine of
+    ``cache_len`` cap ((L, cap) each): B=1 right-padded to the engine's
+    own bucket, kv_len [L] (the engine always passes its last index)."""
+    from repro_torch.serve.continuous import _bucket
+    out = {}
+    for L, cap in lens_and_caps:
+        S = _bucket(L, cap)
+        out.setdefault((S, L), (f"{label} L={L}", 1, S, [L]))
+    return list(out.values())
 
 
 def prefill_shapes(runs):
-    """(label, B, S, kv_len) of every prefill the serving runs give the
-    flash kernel: the session's equal-length batch, and each engine
-    batch as the engine's own policy forms it, right-padded to its
-    longest prompt (kv_len the prompt lengths when ragged, else None)."""
-    from repro_torch.serve import ServeEngine
+    """(label, B, S, kv_len) of every prefill phase 7's serving runs give
+    the flash kernel: the session's equal-length batch, each FIFO engine
+    batch, and each distinct admission prefill of the continuous
+    runs."""
     s = runs["session"]
     out = [("session", s["batch"], s["prompt_len"], None)]
     for mode, kw in runs["engines"].items():
-        eng = ServeEngine(None, None, device="cpu", **kw)
-        for r in make_requests(runs, 2):
-            eng.submit(r)
-        n = 0
-        while eng.queue:
-            lens = [len(r.prompt) for r in eng._next_batch()]
-            out.append((f"{mode} batch {n}", len(lens), max(lens),
-                        None if len(set(lens)) == 1 else lens))
-            n += 1
-    return out
+        out += fifo_shapes(runs["requests"], mode, **kw)
+    return out + admission_shapes(
+        [(L, run["cache_len"]) for run in runs["continuous"].values()
+         for _, L, _ in run["requests"]], ADMISSION)
+
+
+def fp32_prefill_shapes():
+    """(label, B, S, kv_len) of every prefill phase 6's engines give the
+    f32 kernel: the continuous engine's admissions, each solo request
+    and the mixed FIFO engine's batches."""
+    e = ENGINES_FP32
+    return admission_shapes([(L, e["cache_len"]) for _, L, _ in e["spec"]],
+                            f"fp32 {ADMISSION}") + [
+        sh for name, kw in e["engines"].items()
+        for sh in fifo_shapes(e["spec"], f"fp32 {name}", **kw)]
 
 
 def flash_rounded_p(q, k, v, kv_len):
@@ -1233,23 +1299,27 @@ def split_p_check(label, got, want, control):
 
 def check_flash(cfg, runs, gen):
     """The kernel at every serving prefill shape (bf16, causal, kv_len
-    where ragged) and at phase 6's f32 one, against its plain version;
+    where ragged) and at each of phase 6's f32 ones (its engines' and
+    the card-vs-CPU prefill's), against its plain version;
     device times of the kernel, the plain version and one SDPA call
     (library yardstick only: the port never calls it); the bound from
     the bytes each call must move and the causal, kv_len-limited pairs
     it must compute; host times per call of the wrapper and of SDPA.  In
     bf16, ``split_p_check`` against ``flash_rounded_p``.  Totals are
-    over the bf16 serving shapes."""
+    over the bf16 session and FIFO shapes (the ``kernels`` line's, as
+    before the continuous runs), and apart over the bf16 B=1 admission
+    shapes (returned under ``"admission"``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-           "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")
+    tot = dict.fromkeys(keys + ("max_abs_err",), 0.0)
+    adm = dict.fromkeys(keys, 0.0)
     two = LM_TWO_DEVICE
     cases = [sh + (torch.bfloat16,) for sh in prefill_shapes(runs)] + [
-        ("card-vs-CPU prefill", two["batch"], two["prompt_len"], None,
-         torch.float32)]
+        sh + (torch.float32,) for sh in fp32_prefill_shapes() + [
+            ("card-vs-CPU prefill", two["batch"], two["prompt_len"], None)]]
     for label, B, S, lens, dtype in cases:
         q, k, v = (torch.randn((B, S, h, hd), device="cuda", generator=gen)
                    .to(dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv))
@@ -1289,8 +1359,9 @@ def check_flash(cfg, runs, gen):
             + (4 * B if lens else 0)
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
         bms, by = bound(nbytes, flops, rate)
+        kv = "full" if lens is None else (lens if B == 1 else "ragged")
         print(f"  flash_attention {label} {name} B={B} Hq={Hq} Hkv={Hkv} "
-              f"S={S} hd={hd} kv_len={'ragged' if lens else 'full'}: "
+              f"S={S} hd={hd} kv_len={kv}: "
               f"max_abs_err={err:.3e} (tol {FLASH_TOL[name]}) ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} "
               f"sdpa_ms={lib_ms:.4f} (max_abs_err vs plain {lib_err:.3e}) "
@@ -1301,16 +1372,20 @@ def check_flash(cfg, runs, gen):
             split_p_check(label, got, want, flash_rounded_p(q, k, v, kv_len))
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         if dtype == torch.bfloat16:
-            for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                             ("library_ms", lib_ms), ("bound_ms", bms),
-                             ("bytes", nbytes), ("flops", flops)):
-                tot[key] += val
+            into = adm if label.startswith(ADMISSION) else tot
+            for key, val in zip(keys, (ms, plain_ms, lib_ms, bms, nbytes,
+                                       flops)):
+                into[key] += val
         del q, k, v, got, want, mask
     tot["bound_by"] = bound(tot["bytes"], tot["flops"], BF16_FLOP_PER_S)[1]
-    print(f"  flash_attention total over the bf16 prefill shapes: "
-          f"ms={tot['ms']:.4f} sdpa_ms={tot['library_ms']:.4f} "
-          f"ms/sdpa={tot['ms'] / tot['library_ms']:.3f} "
-          f"bound_ms={tot['bound_ms']:.4f}")
+    for what, t in (("session and FIFO prefill", tot),
+                    ("B=1 admission", adm)):
+        print(f"  flash_attention total over the bf16 {what} shapes: "
+              f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"sdpa_ms={t['library_ms']:.4f} "
+              f"ms/sdpa={t['ms'] / t['library_ms']:.3f} "
+              f"bound_ms={t['bound_ms']:.4f}")
+    tot["admission"] = adm
     return tot
 
 
@@ -1364,6 +1439,119 @@ def lm_on_two_devices():
         raise AssertionError("card and CPU LM steps disagree")
 
 
+# phase 6's engines: the reference test's SPEC (tests/test_serve_continuous.py)
+# with its prompts scaled from 3-11 to 20-120 tokens
+ENGINES_FP32 = {"spec": [(0, 82, 4), (1, 45, 2), (2, 120, 6), (0, 20, 1),
+                         (1, 83, 3), (3, 57, 5)],
+                "n_clients": 4, "max_batch": 3, "cache_len": 128,
+                "engines": {"solo": {"max_batch": 1},
+                            "mixed FIFO": {"mixed_batches": True}}}
+
+
+def fresh(reqs):
+    """New requests with the same ids, clients, prompts and budgets."""
+    from repro_torch.serve import Request
+    return [Request(r.req_id, r.client_id, r.prompt, r.max_new_tokens)
+            for r in reqs]
+
+
+def solo_gaps(cfg, params, masks, req):
+    """The top-2 logit gap at each output position of ``req`` served
+    alone as ``ServeEngine(max_batch=1)`` serves it (the client's mask
+    folded), teacher-forced on its own greedy tokens."""
+    import torch
+    from repro_torch.core import masks as masks_mod
+    from repro_torch.models import decode as dec
+    p = {"client": params["client"], "server": masks_mod.fold_unit_masks(
+        cfg, params["server"], masks, req.client_id)}
+    L, n = len(req.prompt), req.max_new_tokens
+    lg, cache = dec.prefill(cfg, p, torch.from_numpy(req.prompt[None]).cuda(),
+                            cache_len=L + n + 1)
+    gaps = []
+    for t in range(n):
+        top2 = lg[0, 0, :cfg.vocab_size].topk(2).values
+        gaps.append(float(top2[0] - top2[1]))
+        if t + 1 < n:
+            tok = torch.full((1, 1), int(req.output[t]), dtype=torch.int32,
+                             device="cuda")
+            lg, cache = dec.decode_step(cfg, p, tok, cache, L + t)
+    return gaps
+
+
+def engines_agree_fp32():
+    """qwen2-0.5b at full width cut to 2 layers, strict fp32, on the card:
+    a ragged trace of mixed clients and 0/1 masks through
+    ``ContinuousEngine`` (3 slots), ``ServeEngine(max_batch=1)`` one
+    request at a time (solo) and ``ServeEngine(mixed_batches=True)``.
+    The greedy tokens must be equal, and the continuous engine's stats
+    those of its scheduler's dry run.  Prints the solo runs' smallest
+    top-2 logit gap and, where an engine parts from solo, the position
+    and the solo gap there."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.steps import init_serve_params
+    from repro_torch.serve import ContinuousEngine, ServeEngine
+    e = ENGINES_FP32
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              n_layers=LM_TWO_DEVICE["n_layers"],
+                              dtype="float32")
+    params = init_serve_params(cfg, 0, "float32", device="cuda")
+    masks = tserve.random_masks(cfg, e["n_clients"], device="cuda")
+    reqs = make_requests(e["spec"], cfg.vocab_size, seed=4)
+
+    def serve(eng, rs):
+        for r in rs:
+            eng.submit(r)
+        eng.run_until_idle()
+        return [r.output for r in rs]
+    fa.reset_launches()
+    cont = ContinuousEngine(cfg, params, masks, max_batch=e["max_batch"],
+                            cache_len=e["cache_len"])
+    outs = {"continuous": serve(cont, fresh(reqs))}
+    launches = fa.LAUNCHES["flash_attention"]
+    solo = fresh(reqs)
+    outs["solo"] = [serve(ServeEngine(cfg, params, masks,
+                                      **e["engines"]["solo"]), [r])[0]
+                    for r in solo]
+    outs["mixed FIFO"] = serve(ServeEngine(cfg, params, masks,
+                                           **e["engines"]["mixed FIFO"]),
+                               fresh(reqs))
+    gaps = [solo_gaps(cfg, params, masks, r) for r in solo]
+    gmin, at = min((g, (i, t)) for i, gs in enumerate(gaps)
+                   for t, g in enumerate(gs))
+    parted = [(name, i, int(np.argmax(outs[name][i] != outs["solo"][i])))
+              for name in ("continuous", "mixed FIFO")
+              for i in range(len(reqs))
+              if not np.array_equal(outs[name][i], outs["solo"][i])]
+    want, log = scheduler_dry_run({"requests": e["spec"], "chunks": None,
+                                   "max_batch": e["max_batch"]})
+    got = {k: getattr(cont.stats, k) for k in want}
+    print(f"  {len(reqs)} requests (prompts "
+          f"{[len(r.prompt) for r in reqs]}, budgets "
+          f"{[r.max_new_tokens for r in reqs]}) from {e['n_clients']} "
+          f"clients, {cfg.n_layers} layers of width {cfg.d_model}: "
+          f"continuous (max_batch={e['max_batch']}), solo and mixed FIFO "
+          f"tokens equal: {not parted}; solo top-2 logit gap min "
+          f"{gmin:.4e} (request {at[0]}, position {at[1]}); continuous "
+          f"EngineStats {got} (dry run {want}); flash launches {launches} "
+          f"for {len(reqs)} admission prefills")
+    for name, i, t in parted:
+        print(f"  {name} parts from solo at request {i} position {t}: "
+              f"{outs[name][i].tolist()} against {outs['solo'][i].tolist()};"
+              f" solo top-2 logit gap there {gaps[i][t]:.4e}")
+    if parted:
+        raise AssertionError("continuous, solo and mixed FIFO tokens differ "
+                             "in strict fp32")
+    if got != want or cont.sched.admission_log != log:
+        raise AssertionError("continuous EngineStats differ from the dry run")
+    if launches != cfg.n_layers * len(reqs):
+        raise AssertionError(f"{launches} flash launches for {len(reqs)} "
+                             "admission prefills")
+
+
 def _sync():
     import torch
     if torch.cuda.is_available():
@@ -1374,13 +1562,21 @@ def _sync():
 def timed(module, name):
     """Wrap ``module.name`` so that each call's wall time, synchronised
     before and after, is appended to the yielded list."""
+    import torch
     fn, log = getattr(module, name), []
 
     def wrapper(*a, **kw):
+        # the timer's own syncs are not the timed code's: out of any
+        # sync-debug mode the caller set
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
         _sync()
+        torch.cuda.set_sync_debug_mode(mode)
         t0 = time.perf_counter()
         out = fn(*a, **kw)
+        torch.cuda.set_sync_debug_mode(0)
         _sync()
+        torch.cuda.set_sync_debug_mode(mode)
         log.append(time.perf_counter() - t0)
         return out
     setattr(module, name, wrapper)
@@ -1388,6 +1584,196 @@ def timed(module, name):
         yield log
     finally:
         setattr(module, name, fn)
+
+
+def scheduler_dry_run(run):
+    """The counting ``EngineStats`` fields and the admission log of a
+    continuous run, from the port's ``SlotScheduler`` alone, driven by
+    the engine's own loop (the chunk of arrivals, the admission chain,
+    one step of the active slots) with no model."""
+    from repro_torch.serve import SlotScheduler
+    sched = SlotScheduler(run["max_batch"])
+    st = dict.fromkeys(("requests", "tokens", "completed", "decode_steps",
+                        "slot_steps"), 0)
+
+    def finish(pairs):
+        for _, r in pairs:
+            st["requests"] += 1
+            st["completed"] += r.max_new_tokens
+
+    def step():
+        while True:
+            admitted = sched.admit()
+            st["tokens"] += len(admitted)
+            completed = sched.pop_completed()
+            finish(completed)
+            if not admitted and not completed:
+                break
+        if sched.active():
+            n = sched.note_step()
+            st["decode_steps"] += 1
+            st["slot_steps"] += n
+            st["tokens"] += n
+            finish(sched.pop_completed())
+    drive(sched, make_requests(run["requests"], 2), run["chunks"], step)
+    return st, sched.admission_log
+
+
+def drive(target, reqs, chunks, step):
+    """Submit ``reqs`` to ``target`` (an engine or a scheduler) in chunks
+    (sizes cycled; None: all at once) before each ``step()``, until
+    nothing is queued or in flight."""
+    sched = getattr(target, "sched", target)
+    pending, k, chunks = list(reqs), 0, chunks or [len(reqs)]
+    while pending or not sched.idle():
+        n = chunks[k % len(chunks)]
+        k += 1
+        for r in pending[:n]:
+            target.submit(r)
+        pending = pending[n:]
+        step()
+
+
+def steady(sched) -> bool:
+    """Whether the next ``step()`` neither admits nor completes: no queued
+    request meets a free slot, and no request in flight reaches its
+    budget in this step."""
+    live = [s for s in sched.slots if s is not None]
+    if sched.queue and len(live) < sched.n_slots:
+        return False
+    return bool(live) and all(s.gen + 1 < s.req.max_new_tokens for s in live)
+
+
+def run_continuous(cfg, params, masks, runs, fifo_tokens, device="cuda"):
+    """Phase 7's continuous runs at full width, bf16, each fed its
+    arrivals between ``step()`` calls (run "fifo traffic": all before
+    the first), its admission prefills timed, synchronised.  Each step
+    that neither admits nor completes runs under
+    ``sync_debug_mode("error")``, the others under "warn", whose sync
+    warnings must be the engine's own.  Each run's ``EngineStats`` must
+    be its scheduler dry run's, its admission log 0..n-1, its gate
+    cache one miss a client, and each admission prefill 24 flash
+    launches.  Then one eight-slot gated decode step in steady state is
+    profiled.  Returns per run its flash launches and admission
+    prefills."""
+    import dataclasses
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import decode as dec
+    from repro_torch.serve import ContinuousEngine
+    out = {}
+    for name, run in runs["continuous"].items():
+        eng = ContinuousEngine(cfg, params, masks, device=device,
+                               max_batch=run["max_batch"],
+                               cache_len=run["cache_len"])
+        reqs = make_requests(run["requests"], cfg.vocab_size, run["seed"])
+        syncs = {"steady": 0, "after_last_admission": 0, "warned": 0}
+
+        def step():
+            if steady(eng.sched):
+                syncs["steady"] += 1
+                syncs["after_last_admission"] += \
+                    len(eng.sched.admission_log) == len(reqs)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eng.step()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                return
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    eng.step()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs["warned"] += sum(SYNC_WARNING in str(w.message)
+                                   for w in caught)
+        fa.reset_launches()
+        _sync()
+        t0 = time.perf_counter()
+        with timed(dec, "prefill") as pre:
+            drive(eng, reqs, run["chunks"], step)
+        _sync()
+        wall = time.perf_counter() - t0
+        done, st = eng._done, eng.stats
+        n_adm = eng.host_syncs["prompt_uploads"]
+        launches = fa.LAUNCHES["flash_attention"]
+        if sorted(r.req_id for r in done) != list(range(len(reqs))) or any(
+                r.output.shape != (r.max_new_tokens,)
+                or not ((r.output >= 0) & (r.output < cfg.vocab_size)).all()
+                for r in done):
+            raise AssertionError(f"[continuous {name}] a request did not "
+                                 "complete with in-vocab tokens")
+        want, log = scheduler_dry_run(run)
+        got = {k: getattr(st, k) for k in want}
+        lat = np.array([r.latency_s for r in done])
+        tag = f"  [continuous {name}]"
+        print(f"{tag} {len(done)} requests in {wall} s: tokens/s="
+              f"{st.tokens / wall} completed/s={st.completed / wall} "
+              f"latency_s p50={np.median(lat)} max={lat.max()} "
+              f"occupancy={st.occupancy} flash_launches={launches} for "
+              f"{n_adm} admission prefills")
+        print(f"{tag} decode_ms_per_step="
+              f"{(wall - sum(pre)) / st.decode_steps * 1e3} admission "
+              f"prefill_ms={[round(x * 1e3, 3) for x in pre]} (mean "
+              f"{np.mean(pre) * 1e3}); admission log "
+              f"{eng.sched.admission_log}; gate hits {st.gate_hits} misses "
+              f"{st.gate_misses}; steady-state steps (no admission, no "
+              f"completion) under sync_debug_mode=error: {syncs['steady']},"
+              f" {syncs['after_last_admission']} of them after the last "
+              f"admission: no host sync; host syncs warned in the other "
+              f"steps: {syncs['warned']} (the engine's own: "
+              f"{eng.host_syncs})")
+        if run["requests"] == runs["requests"]:
+            agree = np.mean([np.mean(r.output == fifo_tokens[r.req_id])
+                             for r in done])
+            print(f"{tag} tokens equal to the mixed FIFO engine's: "
+                  f"{agree:.4f} (bf16 near-ties; f32 equality is held by "
+                  "phase 6 and tests/test_torch_continuous.py)")
+        print(f"{tag} EngineStats " + json.dumps(dataclasses.asdict(st))
+              + f" dry run {json.dumps(want)}")
+        if got != want or eng.sched.admission_log != log:
+            raise AssertionError(f"[continuous {name}] EngineStats or "
+                                 "admission log differ from the dry run")
+        if not (syncs["after_last_admission"] >= 1
+                and syncs["warned"] == sum(eng.host_syncs.values())
+                and log == list(range(len(reqs)))
+                and (st.gate_misses, st.gate_hits)
+                == (runs["n_clients"], len(reqs) - runs["n_clients"])):
+            raise AssertionError(f"[continuous {name}] no steady step after "
+                                 "the last admission, host syncs other than "
+                                 "the engine's own, or admission order or "
+                                 "gate cache counts off")
+        out[f"continuous {name}"] = (launches, n_adm)
+
+    # where a decode step's time goes: eight slots of four clients, gated
+    run = runs["continuous"]["every bucket"]
+    eng = ContinuousEngine(cfg, params, masks, device=device,
+                           max_batch=run["max_batch"],
+                           cache_len=run["cache_len"])
+    spec = [(c, n, 64) for c, n, _ in run["requests"][:run["max_batch"]]]
+    for r in make_requests(spec, cfg.vocab_size, seed=3):
+        eng.submit(r)
+    fa.reset_launches()
+    eng.step()
+    out["continuous profile"] = (fa.LAUNCHES["flash_attention"],
+                                 eng.host_syncs["prompt_uploads"])
+    if not steady(eng.sched) or len(eng.sched.active()) != run["max_batch"]:
+        raise AssertionError("the profiled decode step is not eight slots "
+                             "in steady state")
+    _sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"  [continuous decode] one eight-slot gated step in steady state "
+          "under sync_debug_mode=error: no host sync")
+    profile_calls(eng.step, 4, "continuous decode", "decode steps", "step")
+    return out
 
 
 def run_serving(cfg, runs, device="cuda"):
@@ -1423,7 +1809,7 @@ def run_serving(cfg, runs, device="cuda"):
     tokens = {}
     for mode, kw in runs["engines"].items():
         eng = ServeEngine(cfg, params, masks, device=device, **kw)
-        reqs = make_requests(runs, cfg.vocab_size)
+        reqs = make_requests(runs["requests"], cfg.vocab_size)
         for r in reqs:
             eng.submit(r)
         fa.reset_launches()
@@ -1457,6 +1843,8 @@ def run_serving(cfg, runs, device="cuda"):
     print(f"  gated (mixed) vs folded (per-client) batches: {agree:.4f} of "
           "tokens equal (bf16 GEMMs of other batch shapes may tip a "
           "near-tie; equality is held in f32 by tests/test_torch_serve.py)")
+    out.update(run_continuous(cfg, params, masks, runs, tokens["mixed"],
+                              device))
 
     # where the time goes: the session's prefill and its decode steps
     S = s["prompt_len"]
@@ -1556,25 +1944,30 @@ def main() -> int:
     lm = get_config(SERVE_ARCH)
     serving = serving_runs()
     print(f"phase 5: flash attention against its plain version, at "
-          f"phase 7's prefill shapes ({SERVE_ARCH}) and phase 6's f32 one")
+          f"phase 7's prefill shapes ({SERVE_ARCH}; the continuous runs' "
+          "B=1 admissions too) and phase 6's f32 ones")
     flash = check_flash(lm, serving, gen)
     phase_done(5)
 
     # phase 6 ---------------------------------------------------------
     print(f"phase 6: {SERVE_ARCH} prefill and decode on the card and on "
-          "the CPU (full width, 2 layers, strict fp32)")
+          "the CPU, and the continuous, solo and mixed FIFO engines on the "
+          "card (full width, 2 layers, strict fp32)")
     lm_on_two_devices()
+    engines_agree_fp32()
     phase_done(6)
 
     # phase 7 ---------------------------------------------------------
     print(f"phase 7: serving {SERVE_ARCH} at full width, all "
-          f"{lm.n_layers} layers, bf16: the session CLI and ServeEngine "
-          "in both batching modes")
+          f"{lm.n_layers} layers, bf16: the session CLI, ServeEngine "
+          "in both batching modes and ContinuousEngine on two traces")
     served = run_serving(lm, serving)
     for run, (n, prefills) in served.items():
         if n != lm.n_layers * prefills:
             return fail(f"[{run}] {n} flash launches for {prefills} "
                         f"prefills of {lm.n_layers} layers")
+        print(f"  [{run}] flash launches {n} = {lm.n_layers} per prefill "
+              f"x {prefills} prefills")
     launches["flash_attention"] = sum(n for n, _ in served.values())
     phase_done(7)
 

@@ -68,6 +68,24 @@ def stack_client_gates(per_client_gates):
             for seg in zip(*per_client_gates)]
 
 
+def init_slot_gates(masks, n_slots: int):
+    """All-ones per-slot gate stack (leaves ``(n_rep, n_slots, U)``) for
+    the continuous-batching engine: a free slot decodes through the
+    unmasked server (its row is never read), an occupied slot carries
+    its client's gates, written in by :func:`set_slot_gates`."""
+    return [tree_map(lambda l: torch.ones(
+        (l.shape[1], n_slots) + tuple(l.shape[2:]), dtype=l.dtype,
+        device=l.device), seg) for seg in masks]
+
+
+def set_slot_gates(slot_gates, slot: int, client_gates):
+    """Write one client's gate tree (leaves ``(n_rep, U)``) into column
+    ``slot`` of the per-slot stack (leaves ``(n_rep, B, U)``), in place,
+    and return the stack."""
+    tree_map(lambda s, c: s[:, slot].copy_(c), slot_gates, client_gates)
+    return slot_gates
+
+
 def fold_unit_masks(cfg, server_params, masks, client: int, *,
                     threshold: float = 0.0):
     """Fold client ``client``'s per-unit masks into the server weights.

@@ -21,6 +21,7 @@ from repro_torch.models.layers import apply_norm, embed, unembed, \
 from repro_torch.models.transformer import (Segment, _client_inputs, _dtype,
                                             _positions_for, model_plan,
                                             run_segments, run_segments_decode)
+from repro_torch.weights import tree_map
 
 
 def _seg_cache(cfg, seg: Segment, batch, cache_len, dtype, window, device):
@@ -141,6 +142,20 @@ def slot_serving_ok(cfg: ModelConfig) -> bool:
     return all(d.mixer == "attn"
                for seg in plan["client_segments"] + plan["server_segments"]
                for d in seg.body)
+
+
+def merge_slot_cache(batch_cache, one_cache, slot: int):
+    """Write a single-request cache (leaves ``(n_rep, 1, L, Hkv, hd)``)
+    into row ``slot`` of the persistent batch cache (leaves
+    ``(n_rep, B, L, Hkv, hd)``), in place, and return the batch cache.
+
+    The admission step of the continuous-batching engine: a freed
+    slot's whole cache row is overwritten by the next request's prefill
+    cache, so the two must have one length (prefill with the batch
+    cache's ``cache_len``).  A device-to-device copy per leaf, no host
+    sync."""
+    tree_map(lambda b, s: b[:, slot].copy_(s[:, 0]), batch_cache, one_cache)
+    return batch_cache
 
 
 # ---------------------------------------------------------------------------

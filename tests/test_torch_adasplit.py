@@ -214,7 +214,8 @@ bad = sorted(m for m in sys.modules
 serving = ['configs.qwen2_0_5b', 'models.layers', 'models.mlp',
            'models.attention', 'models.transformer', 'models.decode',
            'kernels.flash_attention', 'launch', 'launch.steps',
-           'launch.serve', 'serve', 'serve.lru', 'serve.engine']
+           'launch.serve', 'serve', 'serve.lru', 'serve.engine',
+           'serve.scheduler', 'serve.continuous']
 missing = [m for m in serving if 'repro_torch.' + m not in mods]
 assert len(mods) >= 34 and not missing, (mods, missing)
 assert not bad, bad

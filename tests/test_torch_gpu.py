@@ -249,6 +249,132 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda):
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
 
 
+def _lm_on_card_and_cpu(cuda, n_clients=4):
+    """qwen2-0.5b reduced, float32: params and 0/1 masks drawn on the
+    card, and their copies on the CPU."""
+    from repro_torch.core import masks as tmasks
+    from repro_torch.launch.steps import init_serve_params
+    from repro_torch.weights import tree_map
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    gpu = init_serve_params(cfg, 0, "float32", device="cuda")
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    masks = tree_map(lambda m: (torch.rand(m.shape, device=cuda,
+                                           generator=gen) > 0.4).float(),
+                     tmasks.init_unit_masks(cfg, n_clients, device=cuda))
+    to_cpu = lambda t: tree_map(lambda x: x.cpu(), t)
+    return cfg, gpu, masks, to_cpu(gpu), to_cpu(masks)
+
+
+def _continuous_run(cfg, params, masks, device, spec, chunks):
+    from repro_torch.serve import ContinuousEngine, Request
+    eng = ContinuousEngine(cfg, params, masks, max_batch=3, cache_len=48,
+                           device=device)
+    rng = np.random.default_rng(0)
+    pending = [Request(i, c, rng.integers(0, cfg.vocab_size, n).astype(
+        np.int32), mn) for i, (c, n, mn) in enumerate(spec)]
+    k = 0
+    while pending or not eng.sched.idle():
+        n = chunks[k % len(chunks)]
+        k += 1
+        for r in pending[:n]:
+            eng.submit(r)
+        pending = pending[n:]
+        eng.step()
+    return eng, {r.req_id: r.output.tolist() for r in eng._done}
+
+
+def test_continuous_engine_on_card_matches_cpu(cuda):
+    """Ragged prompts (buckets 8-32), budgets 1-7 and arrivals between
+    steps: the same tokens, stats, admission log and completion order on
+    the card as on the CPU, each admission prefill one flash launch per
+    layer."""
+    cfg, gpu, masks, cpu, cmasks = _lm_on_card_and_cpu(cuda)
+    spec = [(i % 4, 3 + (7 * i) % 30, 1 + (5 * i) % 7) for i in range(10)]
+    tfa.reset_launches()
+    ge, gout = _continuous_run(cfg, gpu, masks, "cuda", spec, [2, 0, 3, 1])
+    assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers * len(spec)
+    ce, cout = _continuous_run(cfg, cpu, cmasks, "cpu", spec, [2, 0, 3, 1])
+    assert list(gout) == list(cout) and gout == cout
+    g, c = dataclasses.asdict(ge.stats), dataclasses.asdict(ce.stats)
+    g.pop("wall_s"), c.pop("wall_s")
+    assert g == c
+    assert ge.sched.admission_log == ce.sched.admission_log
+    assert ge.host_syncs == ce.host_syncs == {"prompt_uploads": len(spec),
+                                              "row_reads": len(spec)}
+
+
+def test_slot_cache_and_gates_on_card_equal_cpu(cuda):
+    from repro_torch.core import masks as tmasks
+    from repro_torch.models import decode as dec
+    from repro_torch.weights import tree_map
+    cfg, _, masks, _, cmasks = _lm_on_card_and_cpu(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rand = lambda tree: tree_map(lambda t: torch.randn(
+        t.shape, device=cuda, generator=gen).to(t.dtype), tree)
+    batch = rand(dec.init_cache(cfg, 5, 40, device=cuda))
+    one = rand(dec.init_cache(cfg, 1, 40, device=cuda))
+    gates = rand(tmasks.init_slot_gates(masks, 5))
+    to_cpu = lambda t: tree_map(lambda x: x.cpu(), t)
+    cbatch, cone, cgates = to_cpu(batch), to_cpu(one), to_cpu(gates)
+    for slot, client in ((0, 1), (4, 3), (2, 0)):
+        dec.merge_slot_cache(batch, one, slot)
+        dec.merge_slot_cache(cbatch, cone, slot)
+        tmasks.set_slot_gates(gates, slot,
+                              tmasks.gates_for_client(masks, client))
+        tmasks.set_slot_gates(cgates, slot,
+                              tmasks.gates_for_client(cmasks, client))
+        for a, b in zip(tree_leaves(batch) + tree_leaves(gates),
+                        tree_leaves(cbatch) + tree_leaves(cgates)):
+            assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+def test_continuous_engine_syncs_only_to_upload_and_read(cuda):
+    """Over a whole ragged run with arrivals, the host syncs that
+    sync_debug_mode("warn") sees are the engine's own: one prompt
+    upload per admission and one row read per completion."""
+    import warnings
+    cfg, gpu, masks, _, _ = _lm_on_card_and_cpu(cuda)
+    spec = [(i % 4, 3 + (7 * i) % 30, 1 + (5 * i) % 7) for i in range(10)]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng, _ = _continuous_run(cfg, gpu, masks, "cuda", spec,
+                                     [2, 0, 3, 1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the mode's own first-use notice also says "synchronizing"
+    n = sum("called a synchronizing CUDA operation" in str(w.message)
+            for w in caught)
+    assert n == sum(eng.host_syncs.values()) == 2 * len(spec)
+
+
+def test_continuous_steady_decode_step_makes_no_host_sync(cuda):
+    """Once every slot is admitted, a step that neither admits nor
+    completes runs under sync_debug_mode("error")."""
+    from repro_torch.serve import ContinuousEngine, Request
+    cfg, gpu, masks, _, _ = _lm_on_card_and_cpu(cuda)
+    eng = ContinuousEngine(cfg, gpu, masks, max_batch=4, cache_len=64)
+    rng = np.random.default_rng(1)
+    for i in range(4):
+        eng.submit(Request(i, i, rng.integers(
+            0, cfg.vocab_size, 5 + 9 * i).astype(np.int32), 20))
+    eng.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            assert eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert eng.stats.decode_steps == 4 and eng.stats.requests == 0
+    assert eng.host_syncs == {"prompt_uploads": 4, "row_reads": 0}
+    eng.run_until_idle()
+    assert eng.stats.completed == eng.stats.tokens == 80
+
+
 @pytest.mark.parametrize("C,B,D", [(32, 32, 64), (3, 7, 16), (2, 33, 64),
                                    (1, 2, 256), (4, 100, 48)])
 def test_ntxent_stats_matches_plain_and_gradient_matches_cpu(cuda, C, B, D):
