@@ -120,24 +120,47 @@ NTXENT_TOL = 1e-5
 def trainer_runs():
     """Phase 4's trainer runs by label: the main run on the round rung
     (the default), the same hparams on the eager and the epoch rung (one
-    round per staged chunk), and a shorter run with the bias+ReLU
-    epilogue and per-scalar masks.  Phase 2 checks every kernel at the
-    shapes these runs give it."""
+    round per staged chunk), a shorter run with the bias+ReLU epilogue
+    and per-scalar masks; the joint step (``server_grad_to_client``, the
+    Table-5 ablation) on the three rungs, and on a shorter per-scalar
+    run with the fused epilogue (the per-client form); serialized server
+    updates on the round rung, and the per-client loop
+    (``global_batch=False``, the eager rung).  Phase 2 checks every
+    kernel at the shapes these runs give it."""
     import dataclasses
     from repro_torch.core.adasplit import AdaSplitHParams
     main = AdaSplitHParams(rounds=4, kappa=0.5, eta=0.6, batch_size=32)
+    joint = dataclasses.replace(main, server_grad_to_client=True)
     return {"main": main,
             "eager": dataclasses.replace(main, round_scan=False),
             "epoch": dataclasses.replace(main, epoch_scan=True,
                                          epoch_chunk_rounds=1),
             "fused_epilogue+per_scalar": dataclasses.replace(
-                main, rounds=2, mask_mode="per_scalar", fused_epilogue=True)}
+                main, rounds=2, mask_mode="per_scalar", fused_epilogue=True),
+            "joint": joint,
+            "joint_eager": dataclasses.replace(joint, round_scan=False),
+            "joint_epoch": dataclasses.replace(joint, epoch_scan=True,
+                                               epoch_chunk_rounds=1),
+            "joint+per_scalar+fused_epilogue": dataclasses.replace(
+                joint, rounds=2, mask_mode="per_scalar",
+                fused_epilogue=True),
+            # one local and one global round: 19 server steps in turn an
+            # iteration make ~11,000 device ops
+            "serialized": dataclasses.replace(
+                main, rounds=2, serialize_server_updates=True),
+            "loop": dataclasses.replace(main, rounds=2, global_batch=False)}
+
+
+# runs that must select and bill as another run does: (run, reference)
+SAME_SELECTIONS = (("eager", "main"), ("epoch", "main"),
+                   ("joint_eager", "joint"), ("joint_epoch", "joint"),
+                   ("loop", "serialized"))
 
 
 def rung(hp) -> str:
-    if hp.round_scan and hp.epoch_scan:
-        return "epoch"
-    return "round" if hp.round_scan else "eager"
+    if not (hp.round_scan and hp.global_batch):
+        return "eager"
+    return "epoch" if hp.epoch_scan else "round"
 
 
 def fail(msg: str) -> int:
@@ -277,33 +300,92 @@ def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
 # ---------------------------------------------------------------------------
 
 
-def gemm_shapes(cfg, hp):
-    """(name, C, M, K, N) of every conv GEMM that one global iteration of
-    the trainer run with ``hp`` launches: the client blocks over all
-    N_CLIENTS clients, then the server blocks over the S selected ones,
-    as one flattened S*B batch (per_unit) or stacked over S
-    (per_scalar)."""
+def conv_blocks(cfg):
+    """(client blocks, server blocks) of the model: (K*K*Cin, Cout,
+    output H=W) of each conv."""
     import torch
-    from repro_torch.core.orchestrator import n_selected
     from repro_torch.models import lenet
     gen = torch.Generator().manual_seed(0)
-    S, B, hw = n_selected(N_CLIENTS, hp.eta), hp.batch_size, cfg.image_size
-    stack, rows = (S, B) if hp.mask_mode == "per_scalar" else (1, S * B)
-    out = []
-    for part, C, R, params in (
-            ("client", N_CLIENTS, B, lenet.init_client_params(cfg, gen)),
-            ("server", stack, rows, lenet.init_server_params(cfg, gen))):
-        for i, bp in enumerate(params["blocks"]):
+    hw, out = cfg.image_size, []
+    for params in (lenet.init_client_params(cfg, gen),
+                   lenet.init_server_params(cfg, gen)):
+        part = []
+        for bp in params["blocks"]:
             k, _, cin, cout = bp["w"].shape
-            out.append((f"{part}_block{i + 1}", C, R * hw * hw,
-                        k * k * cin, cout))
+            part.append((k * k * cin, cout, hw))
             hw //= 2
+        out.append(part)
     return out
 
 
-def check_gemm(cfg, hp, gen):
+def per_client_global(hp) -> bool:
+    """The global step runs one selected client at a time (serialized
+    server updates, or the per-client loop)."""
+    return hp.serialize_server_updates or not hp.global_batch
+
+
+def gemm_shapes(cfg, hp):
+    """(name, C, M, K, N, launches) of every conv GEMM shape that one
+    global iteration of the trainer run with ``hp`` launches, and how
+    often: the client blocks over all N_CLIENTS clients; then the global
+    step's over the S selected ones -- the joint step's client blocks
+    stacked over S, the server blocks as one flattened S*B batch
+    (per_unit, either joint form) or stacked over S (per_scalar); one
+    client at a time (C=1, B rows) S times when serialized or looped."""
+    from repro_torch.core.orchestrator import n_selected
+    S, B = n_selected(N_CLIENTS, hp.eta), hp.batch_size
+    client, server = conv_blocks(cfg)
+    joint = hp.server_grad_to_client
+    out = [(f"client_block{i + 1}", N_CLIENTS, B * hw * hw, kd, cout, 1)
+           for i, (kd, cout, hw) in enumerate(client)]
+    if per_client_global(hp):
+        out += [(f"joint_client_block{i + 1}", 1, B * hw * hw, kd, cout, S)
+                for i, (kd, cout, hw) in enumerate(client) if joint]
+        out += [(f"server_block{i + 1}", 1, B * hw * hw, kd, cout, S)
+                for i, (kd, cout, hw) in enumerate(server)]
+        return out
+    out += [(f"joint_client_block{i + 1}", S, B * hw * hw, kd, cout, 1)
+            for i, (kd, cout, hw) in enumerate(client) if joint]
+    stack, rows = (S, B) if hp.mask_mode == "per_scalar" else (1, S * B)
+    out += [(f"server_block{i + 1}", stack, rows * hw * hw, kd, cout, 1)
+            for i, (kd, cout, hw) in enumerate(server)]
+    return out
+
+
+def iteration_launches(cfg, hp, global_phase=True):
+    """Kernel launches of one iteration of the run with ``hp``, derived
+    from its hparams: the client step's (its GEMMs, one client Adam, one
+    NT-Xent forward and backward); in the global phase the global
+    step's too.  Batched, the server and the masks take masked Adam
+    once each, and the joint step adds one client Adam over the S rows
+    and one NT-Xent forward and backward; one client at a time, each
+    selected client's step takes masked Adam for the server and client
+    Adam for its mask, and the joint step adds one client Adam and one
+    NT-Xent forward and backward each."""
+    from repro_torch.core.orchestrator import n_selected
+    S = n_selected(N_CLIENTS, hp.eta)
+    shapes = gemm_shapes(cfg, hp)
+    if not global_phase:
+        shapes = [s for s in shapes if s[0].startswith("client_block")]
+    joint = hp.server_grad_to_client and global_phase
+    if not global_phase:
+        masked, client, nt = 0, 1, 1
+    elif per_client_global(hp):
+        masked, client, nt = S, 1 + S * (2 if joint else 1), \
+            1 + (S if joint else 0)
+    else:
+        masked, client, nt = 2, 1 + joint, 1 + joint
+    gemm = "panel_gemm_bias_relu" if hp.fused_epilogue else "panel_gemm"
+    other = "panel_gemm" if hp.fused_epilogue else "panel_gemm_bias_relu"
+    return {gemm: sum(s[-1] for s in shapes), other: 0,
+            "masked_adam": masked, "client_adam": client,
+            "ntxent_stats": nt, "ntxent_backward": nt}
+
+
+def check_gemm(cfg, hp, gen, shapes=None, run=""):
     """The panel GEMM at every conv shape of one global iteration of the
-    run with ``hp``, against its plain version, two launches bit-equal;
+    run with ``hp`` (or at ``shapes``, some of them), against its plain
+    version, two launches bit-equal;
     the plan it ran (tile, K splits), its device time, the plain
     version's, ``torch.bmm``'s (the library time of the product alone;
     for the fused variant printed as a yardstick only: no one call adds
@@ -313,11 +395,13 @@ def check_gemm(cfg, hp, gen):
     from repro_torch.kernels import _build
     from repro_torch.kernels import client_conv as cc
     fused = hp.fused_epilogue
-    label = "panel_gemm_bias_relu" if fused else "panel_gemm"
+    label = ("panel_gemm_bias_relu" if fused else "panel_gemm") \
+        + (f" [{run}]" if run else "")
+    shapes = gemm_shapes(cfg, hp) if shapes is None else shapes
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "library_ms": None if fused else 0.0, "bmm_ms": 0.0,
            "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0}
-    for name, C, M, K, N in gemm_shapes(cfg, hp):
+    for name, C, M, K, N, _ in shapes:
         a = torch.randn((C, M, K), device="cuda", generator=gen)
         b = torch.randn((C, K, N), device="cuda", generator=gen) / math.sqrt(K)
         bias = torch.randn((C, N), device="cuda", generator=gen) \
@@ -361,7 +445,7 @@ def check_gemm(cfg, hp, gen):
         tot["flops"] += flops
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         del a, b, bias, got, again, want
-    print(f"  {label} total over {len(gemm_shapes(cfg, hp))} shapes: "
+    print(f"  {label} total over {len(shapes)} shapes: "
           f"ms={tot['ms']:.4f} bmm_ms={tot['bmm_ms']:.4f} "
           f"bound_ms={tot['bound_ms']:.4f}")
     return tot
@@ -388,10 +472,11 @@ def adam_leaves(cfg, hp):
             [tuple(l.shape) for l in tree_leaves(m)])
 
 
-def client_adam_leaves(cfg, hp):
+def client_adam_leaves(cfg, hp, rows=N_CLIENTS):
     """Leaf shapes of the client step's Adam over all N_CLIENTS clients
     (client towers and projection heads, a step per client), as the
-    trainer run with ``hp`` stacks them."""
+    trainer run with ``hp`` stacks them; with ``rows`` that many of them
+    (the joint step's S selected clients)."""
     import dataclasses
     from repro_torch.core.adasplit import AdaSplitTrainer
     from repro_torch.data.synthetic import mixed_noniid
@@ -399,7 +484,7 @@ def client_adam_leaves(cfg, hp):
     clients = mixed_noniid(N_CLIENTS, n_per_client=1, n_test=1)
     tr = AdaSplitTrainer(cfg, dataclasses.replace(hp, rounds=1), clients,
                          device="cpu")
-    return [tuple(l.shape) for l in tree_leaves(
+    return [(rows,) + tuple(l.shape[1:]) for l in tree_leaves(
         {"c": tr.client_params, "p": tr.proj_params})]
 
 
@@ -553,7 +638,7 @@ def check_client_adam(cfg, hp, gen):
                     kw, True, f"client_adam C={N_CLIENTS} one client step")
 
 
-def check_ntxent(cfg, hp, gen):
+def check_ntxent(cfg, hp, gen, C=N_CLIENTS):
     """The fused NT-Xent forward (row norms, statistics, loss) and
     backward (dq with respect to the raw projections) at the client
     step's (C, B, D), each against its plain version on the card, and the
@@ -562,11 +647,12 @@ def check_ntxent(cfg, hp, gen):
     the witness's own rounding stays far below the tolerance; the float32
     CPU path's distance from it is printed.  On a failure the inputs and
     the gradients go to ``build/ntxent_grad_failure.pt``.  One library
-    call computes neither, so there is no library time.  Returns the two
+    call computes neither, so there is no library time.  ``C`` rows: the
+    client step's N_CLIENTS, or the joint step's S.  Returns the two
     rows."""
     import torch
     from repro_torch.kernels import ntxent as nt
-    C, B, D = N_CLIENTS, hp.batch_size, hp.proj_dim
+    B, D = hp.batch_size, hp.proj_dim
     raw = torch.randn((C, B, D), device="cuda", generator=gen)
     y = torch.randint(0, cfg.n_classes, (C, B), device="cuda",
                       generator=gen, dtype=torch.int32)
@@ -644,6 +730,38 @@ def check_ntxent(cfg, hp, gen):
           f"the kernels vs float64 CPU autograd max_abs_err={g_err:.3e} (of "
           f"{g_scale:.3e})")
     return rows
+
+
+def check_slice_kernels(cfg, runs, gen, checked):
+    """Every kernel at the shapes the joint, serialized and loop runs
+    give it beyond those of the main and fused runs (``checked``: their
+    (fused, C, M, K, N) GEMM shapes): the GEMMs of the joint step's
+    client blocks stacked over S and of one client's server and client
+    blocks, NT-Xent and the client Adam over the joint step's S rows,
+    and the per-client step's Adam launches (the server's masked Adam,
+    one mask row's client Adam)."""
+    from repro_torch.core.orchestrator import n_selected
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+    for label, hp in runs.items():
+        new = []
+        for shape in gemm_shapes(cfg, hp):
+            key = (hp.fused_epilogue,) + tuple(shape[1:5])
+            if key not in checked:
+                checked.add(key)
+                new.append(shape)
+        if new:
+            check_gemm(cfg, hp, gen, shapes=new, run=label)
+    joint = runs["joint"]
+    S = n_selected(N_CLIENTS, joint.eta)
+    check_ntxent(cfg, joint, gen, C=S)
+    adam_row([adam_inputs(client_adam_leaves(cfg, joint, rows=S), True,
+                          gen)], kw, True,
+             f"client_adam [joint] S={S} rows of the joint step")
+    server, masks = adam_leaves(cfg, runs["serialized"])
+    adam_row([adam_inputs(server, False, gen)], kw, False,
+             "masked_adam [serialized] one client's server step")
+    adam_row([adam_inputs([m[1:] for m in masks], False, gen)], kw, True,
+             "client_adam [serialized] one client's mask row")
 
 
 def ntxent_loss_f64(q, y, tau):
@@ -882,18 +1000,19 @@ def one_round(tr, iters, global_phase=True, n_rounds=1):
 
 
 def run_trainer(cfg, hp, clients, label):
-    """Train, evaluate and bill one run on its rung; the NT-Xent forward
-    and backward and the client Adam must have launched once per client
-    step.  Then one more global round, whose launches must be T times the
-    GEMMs phase 2 checked, 2T masked Adam (server, masks), and T each of
-    client Adam, NT-Xent forward and backward; its wall time per
-    iteration, and its profile.  Returns the
-    run's launch counts and a snapshot of its state, meter and
-    selections right after training."""
+    """Train, evaluate and bill one run on its rung; the Adam and NT-Xent
+    kernels must have launched as ``iteration_launches`` derives from the
+    hparams for its local and global iterations.  Then one more global
+    round, whose launches must be T times one global iteration's (its
+    GEMMs those phase 2 checked); its wall time per iteration, and its
+    profile (of one global iteration where the global step takes one
+    client at a time).  Returns the run's launch counts and a snapshot of its
+    state, meter and selections right after training."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.core.adasplit import AdaSplitTrainer
+    t_run = time.perf_counter()
     tr = AdaSplitTrainer(cfg, hp, clients, device="cuda")
     selections = log_selections(tr.orch)
     torch.cuda.synchronize()
@@ -920,39 +1039,59 @@ def run_trainer(cfg, hp, clients, label):
               if v is not None]
     if not all(np.isfinite(losses)) or not np.isfinite(acc):
         raise AssertionError(f"[{label}] non-finite loss or accuracy")
-    steps = {k: launches[k] for k in ("ntxent_stats", "ntxent_backward",
-                                      "client_adam")}
-    if set(steps.values()) != {hp.rounds * T}:
-        raise AssertionError(f"[{label}] {steps} launches for "
-                             f"{hp.rounds * T} client steps")
+    n_local = int(round(hp.kappa * hp.rounds))
+    local = iteration_launches(cfg, hp, global_phase=False)
+    glob = iteration_launches(cfg, hp)
+    # the GEMMs launch in evaluation too; the Adam and NT-Xent kernels not
+    want = {k: T * (n_local * local[k] + (hp.rounds - n_local) * glob[k])
+            for k in ("masked_adam", "client_adam", "ntxent_stats",
+                      "ntxent_backward")}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"[{label}] launches {launches} in training, "
+                             f"derived from the hparams: {want}")
 
     # one more global round on the run's rung: launches, time, profile
     run = one_round(tr, fixed_iters(clients, hp.batch_size, T))
+    torch.cuda.synchronize()
     reset_launches()
+    t0 = time.perf_counter()
     run()
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3
     per_round = read_launches()
     print(f"  [{label}] launches per global round of {T} iterations: "
-          f"{json.dumps(per_round)}")
-    gemm = "panel_gemm_bias_relu" if hp.fused_epilogue else "panel_gemm"
-    want = {gemm: T * len(gemm_shapes(cfg, hp)), "masked_adam": 2 * T,
-            "client_adam": T, "ntxent_stats": T, "ntxent_backward": T}
+          f"{json.dumps(per_round)}; global iteration wall ms (host clock, "
+          f"synced, this one round): {round_ms / T}")
+    want = {k: T * v for k, v in glob.items()}
     if any(per_round[k] != v for k, v in want.items()):
         raise AssertionError(f"[{label}] the path launched other kernels "
                              f"than phase 2 checked: want {want}")
-    profile_calls(run, 2, label, f"global rounds ({T} iterations each)",
-                  "round")
+    if per_client_global(hp):
+        # one client at a time a global iteration is ~11,000 device ops:
+        # profile one iteration (a round of T=1), not a round of T
+        profile_calls(one_round(tr, fixed_iters(clients, hp.batch_size, 1)),
+                      1, label, "global iterations (a round of 1)",
+                      "iteration")
+    else:
+        profile_calls(run, 2, label, f"global rounds ({T} iterations each)",
+                      "round")
+    print(f"  [{label}] seconds for this run (training, one more round, "
+          f"its profile): {time.perf_counter() - t_run:.2f}")
     return launches, tr, snap
 
 
 def time_rungs(results, clients, repeats=7):
-    """Global-iteration wall time of each run's rung (host clock around
-    one synchronised global round, divided by its T iterations), the runs
-    taken in turn ``repeats`` times so that drift of the host hits them
-    alike; prints the median and the spread."""
+    """Global-iteration wall time of each batched run's rung (host clock
+    around one synchronised global round, divided by its T iterations),
+    the runs taken in turn ``repeats`` times so that drift of the host
+    hits them alike; prints the median and the spread.  The serialized
+    and loop runs (~1.4 s a round) are timed once, in ``run_trainer``."""
     import numpy as np
     import torch
     runs = {}
     for label, (_, tr, _) in results.items():
+        if per_client_global(tr.hp):
+            continue
         T = len(clients[0].x) // tr.hp.batch_size
         runs[label] = (one_round(tr, fixed_iters(clients, tr.hp.batch_size,
                                                  T)), T)
@@ -974,15 +1113,21 @@ def time_rungs(results, clients, repeats=7):
               f"(min {min(v)}, max {max(v)}) steps_per_s={1e3 / med}")
 
 
-def compare_rungs(results):
-    """The main run (round rung) against the same hparams on the eager
-    and the epoch rung: equal selections and Meter totals, and the state
-    difference (the rungs run the same ops in the same order)."""
+def compare_rungs(results, cfg, clients):
+    """Each run of ``SAME_SELECTIONS`` against its reference run: the
+    main run (round rung) against the eager and the epoch rung, the
+    joint run likewise, the per-client loop against the serialized
+    batched step: equal selections and Meter totals, and the state
+    difference (the rungs run the same ops in the same order, and so do
+    the loop and the serialized step).  The joint runs must bill the
+    activation gradient down: S payloads of activations + labels up and
+    activations down per global iteration."""
     import numpy as np
+    from repro_torch.core.accounting import split_payload_bytes
+    from repro_torch.core.orchestrator import n_selected
     from repro_torch.weights import tree_leaves
-    base = results["main"][2]
-    for label in ("eager", "epoch"):
-        other = results[label][2]
+    for label, ref in SAME_SELECTIONS:
+        base, other = results[ref][2], results[label][2]
         same_sel = len(other["selections"]) == len(base["selections"]) and \
             all(np.array_equal(a, b) for a, b in zip(other["selections"],
                                                      base["selections"]))
@@ -994,12 +1139,28 @@ def compare_rungs(results):
                      for a, b in zip(tree_leaves(other["state"]),
                                      tree_leaves(base["state"])) if a.size),
                     default=0.0)
-        print(f"  rungs: {label} vs round: {len(base['selections'])} "
-              f"selections equal={same_sel} meter totals equal={same_meter} "
-              f"state max abs diff={worst:.3e} (expected 0)")
+        print(f"  {label} ({rung(results[label][1].hp)} rung) vs {ref} "
+              f"({rung(results[ref][1].hp)} rung): "
+              f"{len(base['selections'])} selections equal={same_sel} "
+              f"meter totals equal={same_meter} state max abs "
+              f"diff={worst:.3e} (expected 0)")
         if not (same_sel and same_meter):
-            raise AssertionError(f"the {label} rung selected or billed "
-                                 "otherwise than the round rung")
+            raise AssertionError(f"{label} selected or billed otherwise "
+                                 f"than {ref}")
+    for label in ("joint", "joint_eager", "joint_epoch"):
+        hp, meter = results[label][1].hp, results[label][2]["meter"]
+        T = len(clients[0].x) // hp.batch_size
+        s = cfg.image_size // 2 ** len(conv_blocks(cfg)[0])
+        acts = (hp.batch_size, s, s, conv_blocks(cfg)[0][-1][1])
+        n_global = (hp.rounds - int(round(hp.kappa * hp.rounds))) * T
+        want = n_global * n_selected(N_CLIENTS, hp.eta) * \
+            split_payload_bytes(acts, hp.batch_size, grad_down=True)
+        print(f"  [{label}] bandwidth {meter.bandwidth_bytes} B = "
+              f"{n_global} global iterations x S x (activations + labels "
+              f"up, activation gradient down): {want} B")
+        if meter.bandwidth_bytes != want:
+            raise AssertionError(f"[{label}] bills {meter.bandwidth_bytes} "
+                                 f"bytes, not {want}")
 
 
 def fetches_under_sync_check(tr, fn):
@@ -1031,9 +1192,12 @@ def fetches_under_sync_check(tr, fn):
 def check_syncs(results, clients):
     """One global and one local round on the round rung, one global and
     one local epoch of two rounds on the epoch rung (one round per
-    chunk, so the side-stream ring turns): one fetch per global round or
-    epoch, none in a local one, and no other host sync."""
-    for label, n_rounds in (("main", 1), ("epoch", 2)):
+    chunk, so the side-stream ring turns), for the main run and the
+    joint run, and one global and one local round of the serialized run:
+    one fetch per global round or epoch, none in a local one, and no
+    other host sync."""
+    for label, n_rounds in (("main", 1), ("epoch", 2), ("joint", 1),
+                            ("joint_epoch", 2), ("serialized", 1)):
         tr = results[label][1]
         T = len(clients[0].x) // tr.hp.batch_size
         iters = fixed_iters(clients, tr.hp.batch_size, T)
@@ -1047,6 +1211,43 @@ def check_syncs(results, clients):
                   "host sync")
             if got != want:
                 raise AssertionError(f"[{label}] {got} fetches in a {what}")
+
+
+def check_loop_reads(tr, clients):
+    """One global round of the per-client loop (eager rung) with
+    ``sync_debug_mode("warn")`` on inside the loop only: it must read
+    each selected client's CE once (and its nnz fraction under act_l1),
+    as the reference does, and sync for nothing else."""
+    import warnings
+    import torch
+    from repro_torch.core.orchestrator import n_selected
+    hp = tr.hp
+    T = len(clients[0].x) // hp.batch_size
+    loop, seen = tr._global_iteration_loop, []
+
+    def counted(*args):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return loop(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                seen.extend(str(w.message) for w in caught)
+    tr._global_iteration_loop = counted
+    try:
+        one_round(tr, fixed_iters(clients, hp.batch_size, T))()
+    finally:
+        del tr._global_iteration_loop
+    syncs = sum(SYNC_WARNING in m for m in seen)
+    want = T * n_selected(N_CLIENTS, hp.eta) * (2 if hp.act_l1 else 1)
+    print(f"  [loop] one global round ({T} iterations) under "
+          f"sync_debug_mode=warn inside the loop: {syncs} syncs = "
+          f"{want} reads of a selected client's CE")
+    if syncs != want:
+        raise AssertionError(f"[loop] {syncs} syncs in the per-client "
+                             f"loop, not {want}")
 
 
 def kernel_api(cfg, tr, clients, hp):
@@ -1141,6 +1342,125 @@ def profile_calls(fn, n, label, what, unit):
     for key, us, count in sorted(dev, key=lambda d: -d[1])[:12]:
         print(f"    {us / n / 1e3:9.4f} ms/{unit} {count // n:5d} "
               f"calls/{unit}  {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: Table 1 at full width, and the baselines on the card and the CPU
+# ---------------------------------------------------------------------------
+
+COMPARE = {"protocol": "noniid", "n_per_client": 128, "n_test": 64,
+           "rounds": 4, "batch": 32}
+
+
+def method_launches(cfg, result):
+    """Launches of one comparison run, derived from its method and
+    hparams: per baseline step the five conv GEMMs (the backward is
+    ``torch.bmm``) and one client Adam a side (FedAvg, FedProx, FedNova
+    one, the split baselines two, Scaffold's SGD none); AdaSplit as
+    ``iteration_launches``; and each evaluation's GEMMs (one forward per
+    client; AdaSplit's stacked over the clients, one GEMM a block)."""
+    tr, name = result["trainer"], result["name"]
+    n_c, n_s = (len(b) for b in conv_blocks(cfg))
+    n_evals = sum("accuracy" in h for h in tr.history) \
+        + (not tr.history[-1].get("accuracy"))
+    if name == "adasplit":
+        hp = tr.hp
+        T = min(len(c.x) for c in tr.clients) // hp.batch_size
+        n_local = int(round(hp.kappa * hp.rounds))
+        local = iteration_launches(cfg, hp, global_phase=False)
+        glob = iteration_launches(cfg, hp)
+        want = {k: T * (n_local * local[k] + (hp.rounds - n_local) * glob[k])
+                for k in glob}
+        want["panel_gemm"] += n_evals * (n_c + n_s)
+        return want
+    adam = {"scaffold": 0, "sl-basic": 2, "splitfed": 2}.get(name, 1)
+    return {"panel_gemm": (n_c + n_s) * (result["steps"]
+                                         + n_evals * len(tr.clients)),
+            "panel_gemm_bias_relu": 0, "masked_adam": 0,
+            "client_adam": adam * result["steps"], "ntxent_stats": 0,
+            "ntxent_backward": 0}
+
+
+def compare_methods(cfg):
+    """Table 1 (Mixed-NonIID) through ``launch/compare.py`` at
+    ``lenet-cifar``'s published widths on N_CLIENTS clients: the six
+    baselines and AdaSplit at (0.6, 0.6, 1e-3) and (0.75, 0.6, 1e-3),
+    each run's launches held to ``method_launches``; the table, each
+    run's wall s, steps/s and launches per step; a profile of one FedAvg
+    local epoch and one SL-basic client turn."""
+    import torch
+    from repro_torch.launch import compare
+    c = COMPARE
+    clients = compare.dataset(c["protocol"], N_CLIENTS, c["n_per_client"],
+                              c["n_test"], image_size=cfg.image_size)
+    counts = {}
+
+    def counted(tag, run):
+        torch.cuda.synchronize()
+        reset_launches()
+        result = run()
+        counts[tag] = read_launches()
+        return result
+    results = compare.run_table(c["protocol"], cfg, clients, c["rounds"],
+                                device="cuda", batch_size=c["batch"],
+                                on_method=counted)
+    print(f"  table1_mixed_noniid: {N_CLIENTS} clients x "
+          f"{c['n_per_client']} examples ({c['n_test']} test), "
+          f"{c['rounds']} rounds, B={c['batch']}, lenet-cifar, card")
+    for line in compare.format_table(results).splitlines():
+        print(f"    {line}")
+    for r in results:
+        got, want = counts[r["method"]], method_launches(cfg, r)
+        per_step = {k: v / r["steps"] for k, v in got.items() if v}
+        print(f"  [{r['method']}] wall_s={r['wall_s']} steps={r['steps']} "
+              f"steps_per_s={r['steps'] / r['wall_s']} (evaluation "
+              f"included) launches={json.dumps(got)} per step "
+              f"(evaluation included)={json.dumps(per_step)}")
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"[{r['method']}] launches {got}, derived "
+                                 f"from its method: {want}")
+    by = {r["method"]: r["trainer"] for r in results}
+    fed, sl = by["fedavg"], by["sl-basic"]
+    T = len(clients[0].x) // c["batch"]
+    profile_calls(lambda: fed._local_epoch(0, fed.global_params), 2,
+                  "fedavg", f"local epochs ({T} steps each)", "epoch")
+    profile_calls(lambda: sl._client_turn(0), 2, "sl-basic",
+                  f"client turns ({T} steps each)", "turn")
+    return results
+
+
+def baselines_on_two_devices(cfg):
+    """One round of each baseline at full width on 4 clients (T=2 steps
+    each), on the card and on the CPU from one initial state, strict
+    fp32: the state within the CPU tests' Adam bound (2.5 lr, at most
+    0.1% of elements off by more than 1e-5 + 1e-4 |x|), the meters
+    equal, the accuracies within one test example per client."""
+    import numpy as np
+    from repro_torch.baselines import BASELINES, make_trainer
+    from repro_torch.launch import compare
+    clients = compare.dataset("noniid", 4, 64, 16,
+                              image_size=cfg.image_size, seed=5)
+    for name in BASELINES:
+        gpu = make_trainer(name, cfg, clients, device="cuda", rounds=1)
+        cpu = make_trainer(name, cfg, clients, device="cpu", rounds=1)
+        cpu.set_state(gpu.get_state())
+        gpu.train()
+        cpu.train()
+        worst, flips, total = state_diff(gpu.get_state(), cpu.get_state())
+        tol = 2.5 * gpu.hp.lr
+        same_meter = all(getattr(gpu.meter, f) == getattr(cpu.meter, f)
+                         for f in ("bandwidth_bytes", "client_flops",
+                                   "server_flops", "host_device_bytes",
+                                   "interconnect_bytes"))
+        acc_off = float(np.max(np.abs(gpu.client_accuracies()
+                                      - cpu.client_accuracies())))
+        print(f"  [{name}] card vs CPU, one round: state_max_abs_diff="
+              f"{worst:.3e} (bound {tol:.1e}) "
+              f"state_elements_off={flips}/{total} meters equal="
+              f"{same_meter} accuracy max diff={acc_off}")
+        if not (worst <= tol and flips <= 1e-3 * total
+                and same_meter and acc_off <= 1.0 / 16 + 1e-6):
+            raise AssertionError(f"[{name}] card and CPU rounds disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -1910,6 +2230,10 @@ def main() -> int:
     client_adam = check_client_adam(cfg, runs["main"], gen)
     ntxent = check_ntxent(cfg, runs["main"], gen)
     soft = check_soft_threshold(cfg, runs["main"], gen)
+    checked = {(hp.fused_epilogue,) + tuple(shape[1:5])
+               for hp in (runs["main"], runs["fused_epilogue+per_scalar"])
+               for shape in gemm_shapes(cfg, hp)}
+    check_slice_kernels(cfg, runs, gen, checked)
     phase_done(2)
 
     # phase 3 ---------------------------------------------------------
@@ -1924,9 +2248,10 @@ def main() -> int:
     clients = mixed_noniid(N_CLIENTS, n_per_client=128, n_test=64)
     results = {label: run_trainer(cfg, hp, clients, label)
                for label, hp in runs.items()}
-    compare_rungs(results)
+    compare_rungs(results, cfg, clients)
     time_rungs(results, clients)
     check_syncs(results, clients)
+    check_loop_reads(results["loop"][1], clients)
     api = kernel_api(cfg, results["main"][1], clients, runs["main"])
     counts = {label: r[0] for label, r in results.items()}
     launches = {"panel_gemm": counts["main"]["panel_gemm"],
@@ -1971,11 +2296,20 @@ def main() -> int:
     launches["flash_attention"] = sum(n for n, _ in served.values())
     phase_done(7)
 
+    # phase 8 ---------------------------------------------------------
+    print(f"phase 8: Table 1 (Mixed-NonIID) at lenet-cifar's published "
+          f"widths, C={N_CLIENTS}: the six baselines and two AdaSplit "
+          "variants through launch/compare.py; each baseline one round on "
+          "the card and on the CPU")
+    compare_methods(cfg)
+    baselines_on_two_devices(cfg)
+    phase_done(8)
+
     zero = [k for k, v in launches.items() if v == 0]
     if zero:
         return fail(f"kernels never launched on the path: {zero}")
 
-    # phase 8 ---------------------------------------------------------
+    # phase 9 ---------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/"
     rows = []
     for name, tot, source, replaces in (

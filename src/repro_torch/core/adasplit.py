@@ -1,6 +1,7 @@
 """The AdaSplit training protocol (paper §3), classification form — port
-of ``repro.core.adasplit`` with ``global_batch=True`` and client state
-resident on one device, on its three dispatch rungs.
+of ``repro.core.adasplit`` with client state resident on one device, in
+every global-phase form the reference runs there, on its three dispatch
+rungs.
 
 Each iteration:
 
@@ -12,18 +13,33 @@ Each iteration:
    of the C per-client losses; clients share no parameters, so each
    client's rows of the gradient are its own loss's gradient;
 2. in the global phase, UCB selects eta*N clients (eq. 6);
-3. one batched global step over the S selected clients: server CE +
-   lambda*L1(masks), the server updated by fused Adam and each selected
-   client's masks by per-row fused mask-Adam (eq. 7) — each one launch
-   of the multi-tensor ``masked_adam`` kernel on the card;
+3. one global step over the S selected clients (``global_step``):
+   server CE + lambda*L1(masks), the server updated by fused Adam and
+   each selected client's masks by per-row fused mask-Adam (eq. 7) —
+   each one launch of the multi-tensor ``masked_adam`` kernel on the
+   card.  Its forms, as the reference's hparams pick them:
+
+   * ``server_grad_to_client`` (the Table-5 ablation,
+     ``global_joint_step``): the selected clients' towers and heads are
+     recomputed from their images and trained on NT-Xent + the server
+     CE, so the server gradient reaches them; ``flat_joint`` runs the
+     server once over the S*B examples, else (and with per-scalar
+     masks) stacked over the S clients, the reference's per-client form;
+   * ``serialize_server_updates``: the S clients' server steps
+     (``server_step``, ``joint_step``) one after another, each updating
+     the server before the next, the mask by plain ``adam_update``;
+   * ``global_batch=False``: the seed's per-client host loop
+     (``_global_iteration_loop``, eager rung only), the oracle of the
+     serialized step;
 4. the UCB state is updated and ``Meter`` bills bandwidth and compute
-   (eq. 1-2).
+   (eq. 1-2), the activation gradient down too under the ablation.
 
 The rungs run the same torch ops in the same order and differ only in
 when the host waits for the device:
 
-* eager (``round_scan=False``): the host selects and bills every
-  global iteration (two device->host copies each);
+* eager (``round_scan=False``, or ``global_batch=False``): the host
+  selects and bills every global iteration (two device->host copies
+  each; the per-client loop reads each selected client's CE);
 * round (``round_scan=True``, the default, as in the reference): the
   round's (T, C, B, ...) batches and (T, N) selection jitter are staged
   once from pinned memory, and select / gather / global step / scatter
@@ -63,8 +79,8 @@ from repro_torch.kernels.masked_adam import fused_adam_update
 from repro_torch.kernels.ntxent import ntxent_loss
 from repro_torch.models import lenet
 from repro_torch.optim.adam import adam_init, adam_update
-from repro_torch.weights import (from_numpy, to_numpy, tree_leaves,
-                                 tree_map, tree_unflatten)
+from repro_torch.utils.tree import tree_grads, tree_requires_grad
+from repro_torch.weights import device_of, from_numpy, to_numpy, tree_map
 
 
 @dataclass
@@ -81,6 +97,12 @@ class AdaSplitHParams:
     mask_mode: str = "per_unit"     # "per_unit" | "per_scalar"
     act_l1: float = 0.0             # beta: split-activation sparsification
     act_threshold: float = 1e-3     # payload nnz threshold
+    server_grad_to_client: bool = False  # Table-5 ablation (joint step)
+    global_batch: bool = True       # batched global phase (False = the
+                                    # per-client loop, eager rung)
+    serialize_server_updates: bool = False  # the S server steps in turn
+    flat_joint: bool = True         # joint step over S*B flattened
+                                    # examples (False = per-client form)
     fused_epilogue: bool = False    # bias+ReLU in the panel-GEMM epilogue
     round_scan: bool = True         # a round per dispatch, one fetch per
                                     # global round (False = eager rung)
@@ -109,19 +131,19 @@ def _stack(trees):
     return tree_map(lambda *ls: torch.stack(ls), *trees)
 
 
-def _grads(loss, trees):
-    """d loss / d every leaf of ``trees`` (a tuple), as trees."""
-    leaves = [tree_leaves(t) for t in trees]
-    flat = torch.autograd.grad(loss, [l for ls in leaves for l in ls])
-    out, i = [], 0
-    for t, ls in zip(trees, leaves):
-        out.append(tree_unflatten(t, flat[i:i + len(ls)]))
-        i += len(ls)
-    return out
+def _row(tree, k: int):
+    """Row ``k`` of every (S, ...) leaf (a view: no copy, no host read)."""
+    return tree_map(lambda l: l[k], tree)
 
 
-def _requires_grad(tree):
-    return tree_map(lambda t: t.detach().requires_grad_(True), tree)
+def _set_row(tree, k: int, new):
+    """A copy of ``tree`` with row ``k`` of every leaf replaced by
+    ``new``'s (the reference's ``.at[k].set``)."""
+    def put(l, n):
+        out = l.clone()
+        out[k] = n
+        return out
+    return tree_map(put, tree, new)
 
 
 class AdaSplitTrainer:
@@ -133,10 +155,7 @@ class AdaSplitTrainer:
                  device="cuda", jitter=None):
         self.cfg, self.hp, self.clients = cfg, hp, clients
         self.n = len(clients)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("AdaSplitTrainer(device='cuda') needs a CUDA "
-                               "card; pass device='cpu' to run on the CPU")
+        self.device = device_of(device)
         self.orch = Orchestrator(self.n, hp.eta, hp.gamma, seed=hp.seed,
                                  device=self.device, jitter=jitter)
         gen = torch.Generator().manual_seed(hp.seed)
@@ -201,21 +220,26 @@ class AdaSplitTrainer:
     # ------------------------------------------------------------------
     # client step: all C clients, one stacked forward
     # ------------------------------------------------------------------
+    def _client_part(self, cp_pp, xs):
+        """Client tower and projection head, stacked (C, B, ...) or one
+        client's (B, ...) -> (split activations, projections)."""
+        acts = lenet.client_forward(self.cfg, cp_pp["c"], xs,
+                                    fused_epilogue=self.hp.fused_epilogue)
+        return acts, _proj_apply(cp_pp["p"], acts)
+
     def _client_step(self, xs, ys):
         """Update every client's tower + head on its own batch; returns
         the (C, B, H', W', C') split activations and the (C,) losses."""
-        hp, cfg = self.hp, self.cfg
-        cp_pp = _requires_grad({"c": self.client_params,
+        hp = self.hp
+        cp_pp = tree_requires_grad({"c": self.client_params,
                                 "p": self.proj_params})
         with torch.enable_grad():
-            acts = lenet.client_forward(cfg, cp_pp["c"], xs,
-                                        fused_epilogue=hp.fused_epilogue)
-            q = _proj_apply(cp_pp["p"], acts)
+            acts, q = self._client_part(cp_pp, xs)
             loss = ntxent_loss(q, ys, hp.tau)                     # (C,)
             if hp.act_l1:
                 loss = loss + hp.act_l1 * acts.abs().sum(
                     dim=tuple(range(1, acts.ndim))) / acts.shape[1]
-            (g,) = _grads(loss.sum(), (cp_pp,))
+            g = tree_grads(loss.sum(), cp_pp)
         new, self.c_opt = adam_update(
             {"c": self.client_params, "p": self.proj_params}, g,
             self.c_opt, lr=hp.lr)
@@ -241,6 +265,41 @@ class AdaSplitTrainer:
         """Per-client mean CE from (S*B,) flattened logits."""
         return token_nll(logits, y_flat).reshape(S, -1).mean(dim=1)
 
+    def _server_ces(self, sp, msel, acts, ys, *, flat: bool):
+        """Per-client server CE: (S,) from stacked (S, B, ...) split
+        activations, or one client's scalar from (B, ...).
+
+        ``per_scalar``: per-client effective weights (a forward stacked
+        over the S clients).  ``per_unit``: with ``flat``, one (S*B)-
+        example forward with per-example gates gathered by client id;
+        else a forward stacked over the clients, each gated by its own
+        (S, U) mask rows (or one client's (U,) ones)."""
+        hp, cfg = self.hp, self.cfg
+        fe = hp.fused_epilogue
+        if hp.mask_mode == "per_scalar" or not flat:
+            if hp.mask_mode == "per_scalar":
+                logits, _ = lenet.server_forward(
+                    cfg, masks_mod.apply_scalar_masks(sp, msel), acts,
+                    fused_epilogue=fe)
+            else:
+                logits, _ = lenet.server_forward(cfg, sp, acts, gates=msel,
+                                                 fused_epilogue=fe)
+            return token_nll(logits, ys).mean(dim=-1)
+        S, B = acts.shape[:2]
+        seg_ids = torch.arange(S, device=acts.device).repeat_interleave(B)
+        gates = tree_map(lambda l: l[seg_ids], msel)
+        logits, _ = lenet.server_forward(
+            cfg, sp, acts.reshape((S * B,) + acts.shape[2:]), gates=gates,
+            fused_epilogue=fe)
+        return self.seg_ces(logits, ys.reshape(-1), S)
+
+    def _server_adam(self, g_sp):
+        """The server's fused Adam step (one kernel launch on the card),
+        on ``self``."""
+        with torch.no_grad():
+            self.server_params, self.s_opt = fused_adam_update(
+                self.server_params, g_sp, self.s_opt, lr=self.hp.lr)
+
     def global_step(self, masks_sel, m_opt_sel, acts_sel, ys_sel):
         """One server step over the selection; updates the server in
         place on ``self`` and returns (masks_sel, m_opt_sel, ces, fracs).
@@ -250,64 +309,183 @@ class AdaSplitTrainer:
         weights, run as a stacked forward over the S clients.  Either
         way the loss is the sum of per-client losses, so the mask grads
         are each client's own and the server grad is their sum (mean =
-        /S)."""
-        hp, cfg = self.hp, self.cfg
+        /S).  ``serialize_server_updates``: ``server_step`` per client,
+        in order (the reference's ``lax.scan``)."""
+        hp = self.hp
         acts_sel, fracs = self.sparsify(acts_sel)
-        S, B = acts_sel.shape[:2]
-        sp = _requires_grad(self.server_params)
-        msel = _requires_grad(masks_sel)
+        S = acts_sel.shape[0]
+        if hp.serialize_server_updates:
+            out = [self.server_step(_row(masks_sel, k), _row(m_opt_sel, k),
+                                    acts_sel[k], ys_sel[k])
+                   for k in range(S)]
+            masks_sel, m_opt_sel, ces = (_stack(o) for o in zip(*out))
+            return masks_sel, m_opt_sel, ces, fracs
+        sp = tree_requires_grad(self.server_params)
+        msel = tree_requires_grad(masks_sel)
         with torch.enable_grad():
-            if hp.mask_mode == "per_scalar":
-                eff = masks_mod.apply_scalar_masks(sp, msel)
-                logits, _ = lenet.server_forward(
-                    cfg, eff, acts_sel, fused_epilogue=hp.fused_epilogue)
-                ces = token_nll(logits, ys_sel).mean(dim=-1)       # (S,)
-            else:
-                seg_ids = torch.arange(S, device=acts_sel.device
-                                       ).repeat_interleave(B)
-                gates = tree_map(lambda l: l[seg_ids], msel)
-                acts_flat = acts_sel.reshape((S * B,) + acts_sel.shape[2:])
-                logits, _ = lenet.server_forward(
-                    cfg, sp, acts_flat, gates=gates,
-                    fused_epilogue=hp.fused_epilogue)
-                ces = self.seg_ces(logits, ys_sel.reshape(-1), S)
+            ces = self._server_ces(sp, msel, acts_sel, ys_sel, flat=True)
             total = ces.sum() + hp.lam * l1_penalty(msel) * S
-            g_sp, g_m = _grads(total, (sp, msel))
-        g_sp = tree_map(lambda t: t / S, g_sp)
+            g_sp, g_m = tree_grads(total, (sp, msel))
+        self._server_adam(tree_map(lambda t: t / S, g_sp))
         with torch.no_grad():
-            self.server_params, self.s_opt = fused_adam_update(
-                self.server_params, g_sp, self.s_opt, lr=hp.lr)
             masks_sel, m_opt_sel = fused_adam_update(
                 masks_sel, g_m, m_opt_sel, lr=hp.lr)
         return masks_sel, m_opt_sel, ces.detach(), fracs
 
-    def _selected_step(self, idx, acts, ys):
-        """Gather the selected clients' masks and mask-Adam rows, run one
-        global step on them, scatter them back; returns (ces, fracs)."""
+    def server_step(self, mask_i, m_opt_i, acts, y):
+        """One client's server step (the reference's ``server_step``) on
+        its (B, ...) activations: CE + lambda*L1 of its mask; the server
+        updated in place on ``self`` by fused Adam, the mask by plain
+        ``adam_update``, as the reference does.  Returns (mask_i,
+        m_opt_i, ce)."""
+        hp = self.hp
+        sp, m = tree_requires_grad((self.server_params, mask_i))
+        with torch.enable_grad():
+            ce = self._server_ces(sp, m, acts, y, flat=False)
+            g_sp, g_m = tree_grads(ce + hp.lam * l1_penalty(m), (sp, m))
+        self._server_adam(g_sp)
+        mask_i, m_opt_i = adam_update(mask_i, g_m, m_opt_i, lr=hp.lr)
+        return mask_i, m_opt_i, ce.detach()
+
+    def joint_step(self, cp_pp, c_opt_i, mask_i, m_opt_i, x, y):
+        """One client's joint step (the reference's ``joint_step``, the
+        Table-5 ablation): its tower and head recomputed from its images
+        x (B, ...) and trained on NT-Xent + the server CE, the server on
+        the CE (in place on ``self``, fused Adam), its mask on the CE +
+        lambda*L1 (``adam_update``).  Returns (cp_pp, c_opt_i, mask_i,
+        m_opt_i, ce)."""
+        hp = self.hp
+        cp, sp, m = tree_requires_grad((cp_pp, self.server_params, mask_i))
+        with torch.enable_grad():
+            acts, q = self._client_part(cp, x)
+            ce = self._server_ces(sp, m, acts, y, flat=False)
+            total = ntxent_loss(q, y, hp.tau) + ce \
+                + hp.lam * l1_penalty(m)
+            g_c, g_sp, g_m = tree_grads(total, (cp, sp, m))
+        cp_pp, c_opt_i = adam_update(cp_pp, g_c, c_opt_i, lr=hp.lr)
+        self._server_adam(g_sp)
+        mask_i, m_opt_i = adam_update(mask_i, g_m, m_opt_i, lr=hp.lr)
+        return cp_pp, c_opt_i, mask_i, m_opt_i, ce.detach()
+
+    def global_joint_step(self, cp_sel, c_opt_sel, masks_sel, m_opt_sel,
+                          xs_sel, ys_sel, acts_sel):
+        """The joint global step over the S selected clients (the
+        reference's ``global_joint_step``): the payload nnz fractions come
+        from the client step's ``acts_sel``, but the server runs on
+        activations recomputed densely from ``xs_sel``.  The loss is the
+        sum of the S clients' NT-Xent + CE + lambda*L1*S: each client's
+        rows of the gradient are its own, the server's is their sum
+        (mean = /S).  The tower is stacked over S, NT-Xent one call over
+        S rows; the server runs flat over S*B examples (``flat_joint``,
+        per-unit) or stacked over S (the per-client form).  The client
+        rows take ``adam_update`` (their per-row steps from ``c_opt_sel``),
+        the server fused Adam, the masks fused mask-Adam.
+        ``serialize_server_updates``: ``joint_step`` per client, in order.
+        Returns (cp_sel, c_opt_sel, masks_sel, m_opt_sel, ces, fracs)."""
+        hp = self.hp
+        _, fracs = self.sparsify(acts_sel)
+        S = xs_sel.shape[0]
+        if hp.serialize_server_updates:
+            out = [self.joint_step(_row(cp_sel, k), _row(c_opt_sel, k),
+                                   _row(masks_sel, k), _row(m_opt_sel, k),
+                                   xs_sel[k], ys_sel[k]) for k in range(S)]
+            return (*(_stack(o) for o in zip(*out)), fracs)
+        cp, sp, msel = tree_requires_grad((cp_sel, self.server_params,
+                                           masks_sel))
+        with torch.enable_grad():
+            acts, q = self._client_part(cp, xs_sel)
+            lcs = ntxent_loss(q, ys_sel, hp.tau)                  # (S,)
+            ces = self._server_ces(sp, msel, acts, ys_sel,
+                                   flat=hp.flat_joint)
+            total = lcs.sum() + ces.sum() + hp.lam * l1_penalty(msel) * S
+            g_c, g_sp, g_m = tree_grads(total, (cp, sp, msel))
+        cp_sel, c_opt_sel = adam_update(cp_sel, g_c, c_opt_sel, lr=hp.lr)
+        self._server_adam(tree_map(lambda t: t / S, g_sp))
+        with torch.no_grad():
+            masks_sel, m_opt_sel = fused_adam_update(
+                masks_sel, g_m, m_opt_sel, lr=hp.lr)
+        return cp_sel, c_opt_sel, masks_sel, m_opt_sel, ces.detach(), fracs
+
+    def _selected_step(self, idx, acts, xs, ys):
+        """Gather the selected clients' masks and mask-Adam rows (and,
+        under the ablation, their towers, heads and client-Adam rows),
+        run one global step on them, scatter them back; returns (ces,
+        fracs)."""
         masks_sel = masks_mod.gather_clients(self.masks, idx)
         mopt_sel = masks_mod.gather_clients(self.m_opt, idx)
-        masks_sel, mopt_sel, ces, fracs = self.global_step(
-            masks_sel, mopt_sel, acts[idx], ys[idx])
+        if self.hp.server_grad_to_client:
+            cp_sel = masks_mod.gather_clients(
+                {"c": self.client_params, "p": self.proj_params}, idx)
+            copt_sel = masks_mod.gather_clients(self.c_opt, idx)
+            cp_sel, copt_sel, masks_sel, mopt_sel, ces, fracs = \
+                self.global_joint_step(cp_sel, copt_sel, masks_sel,
+                                       mopt_sel, xs[idx], ys[idx], acts[idx])
+            self.client_params = masks_mod.scatter_clients(
+                self.client_params, idx, cp_sel["c"])
+            self.proj_params = masks_mod.scatter_clients(
+                self.proj_params, idx, cp_sel["p"])
+            self.c_opt = masks_mod.scatter_clients(self.c_opt, idx, copt_sel)
+        else:
+            masks_sel, mopt_sel, ces, fracs = self.global_step(
+                masks_sel, mopt_sel, acts[idx], ys[idx])
         self.masks = masks_mod.scatter_clients(self.masks, idx, masks_sel)
         self.m_opt = masks_mod.scatter_clients(self.m_opt, idx, mopt_sel)
         return ces, fracs
 
-    def _global_iteration(self, selected, acts, ys):
+    def _bill_payload(self, acts_shape, nnz):
+        """One selected client's split payload (its own nnz fraction, or
+        None: dense) and server FLOPs."""
+        hp = self.hp
+        self.meter.add_payload(split_payload_bytes(
+            acts_shape, hp.batch_size, nnz_fraction=nnz,
+            grad_down=hp.server_grad_to_client))
+        self.meter.add_server_flops(3 * self._fl_s * hp.batch_size)
+
+    def _global_iteration(self, selected, acts, ys, xs=None):
         """One batched global-phase iteration of the eager rung; exactly
         one device->host copy (the per-client CE losses and payload nnz
-        fractions)."""
+        fractions).  ``xs`` (the images) feed the joint step."""
         hp = self.hp
         idx = torch.as_tensor(np.asarray(selected), dtype=torch.int64,
                               device=self.device)
-        ces, fracs = self._selected_step(idx, acts, ys)
+        ces, fracs = self._selected_step(idx, acts, xs, ys)
         losses, fracs = torch.stack([ces, fracs]).cpu().numpy()  # one sync
-        acts_shape = tuple(acts.shape[1:])
         for k in range(len(selected)):
-            nnz = float(fracs[k]) if hp.act_l1 else None
-            self.meter.add_payload(split_payload_bytes(
-                acts_shape, hp.batch_size, nnz_fraction=nnz))
-            self.meter.add_server_flops(3 * self._fl_s * hp.batch_size)
+            self._bill_payload(tuple(acts.shape[1:]),
+                               float(fracs[k]) if hp.act_l1 else None)
         return [float(l) for l in losses]
+
+    def _global_iteration_loop(self, selected, acts, ys, xs=None):
+        """The seed's per-client host loop (``global_batch=False``, the
+        reference's ``_global_iteration_loop``): ``server_step`` (or
+        ``joint_step``) per selected client in turn, each client's state
+        rows sliced out and written back.  Reads each client's CE, and
+        its nnz fraction under ``act_l1``, once, and nothing else."""
+        hp = self.hp
+        losses = []
+        for i in (int(i) for i in selected):
+            a_i, nnz = acts[i], None
+            if hp.act_l1:
+                nz = a_i.abs() > hp.act_threshold
+                nnz = float(nz.to(torch.float32).mean())
+                a_i = torch.where(nz, a_i, torch.zeros((), device=a_i.device))
+            mask_i, mopt_i = _row(self.masks, i), _row(self.m_opt, i)
+            if hp.server_grad_to_client:
+                cp_pp = {"c": self.client_params, "p": self.proj_params}
+                cp_i, copt_i, mask_i, mopt_i, ce = self.joint_step(
+                    _row(cp_pp, i), _row(self.c_opt, i), mask_i, mopt_i,
+                    xs[i], ys[i])
+                cp_pp = _set_row(cp_pp, i, cp_i)
+                self.client_params, self.proj_params = cp_pp["c"], cp_pp["p"]
+                self.c_opt = _set_row(self.c_opt, i, copt_i)
+            else:
+                mask_i, mopt_i, ce = self.server_step(mask_i, mopt_i, a_i,
+                                                      ys[i])
+            self.masks = _set_row(self.masks, i, mask_i)
+            self.m_opt = _set_row(self.m_opt, i, mopt_i)
+            losses.append(float(ce))
+            self._bill_payload(tuple(a_i.shape), nnz)
+        return losses
 
     def _staging_bytes_per_round(self, T: int) -> float:
         """H2D bytes of T iterations' (C, B) f32 images + int32 labels:
@@ -334,7 +512,9 @@ class AdaSplitTrainer:
         if not global_phase:
             return None, None, closs
         selected = self.orch.select()
-        losses = self._global_iteration(selected, acts, ys)
+        step = (self._global_iteration if hp.global_batch
+                else self._global_iteration_loop)
+        losses = step(selected, acts, ys, xs)
         self.orch.update(selected, losses)
         return selected, losses, closs
 
@@ -363,7 +543,7 @@ class AdaSplitTrainer:
         if not global_phase:
             return ucb, closs, None
         idx = ucb_select(ucb, self.orch.k, jitter)
-        ces, fracs = self._selected_step(idx, acts, y)
+        ces, fracs = self._selected_step(idx, acts, x, y)
         zeros = torch.zeros((self.n,), device=self.device)
         sel = zeros.index_fill(0, idx, 1.0)
         dense = zeros.index_copy(0, idx, ces)
@@ -455,6 +635,7 @@ class AdaSplitTrainer:
                     batch=hp.batch_size, n_clients=self.n, n_iters=T,
                     client_flops_per_example=self._fl_c,
                     server_flops_per_example=self._fl_s,
+                    grad_down=hp.server_grad_to_client,
                     host_device_bytes=self._staging_bytes_per_round(T))
 
     def _run_round_scan(self, iters, T: int, global_phase: bool):
@@ -576,10 +757,13 @@ class AdaSplitTrainer:
         loss and the mean server CE of the round, and the accuracy at
         eval points."""
         hp = self.hp
-        if hp.round_scan and hp.epoch_scan:
+        # the per-client loop runs on the eager rung whatever the rungs'
+        # flags say, as in the reference
+        resident = hp.round_scan and hp.global_batch
+        if resident and hp.epoch_scan:
             return self._train_epoch_scan(eval_every)
         local_rounds = int(round(hp.kappa * hp.rounds))
-        run_round = (self._run_round_scan if hp.round_scan
+        run_round = (self._run_round_scan if resident
                      else self._run_round_eager)
         for r in range(hp.rounds):
             global_phase = r >= local_rounds

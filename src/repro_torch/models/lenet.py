@@ -92,6 +92,13 @@ def init_server_params(cfg, gen: torch.Generator):
             "head": dense(cfg.d_model, cfg.n_classes, 0.05)}
 
 
+def init_params(cfg, gen: torch.Generator):
+    """The whole model, client tower and server half, from one generator
+    (the federated baselines' model)."""
+    return {"client": init_client_params(cfg, gen),
+            "server": init_server_params(cfg, gen)}
+
+
 def client_forward(cfg, p, images, *, fused_epilogue=False):
     """Client tower: images (B, H, W, 3) unstacked, or (C, B, H, W, 3)
     with (C, ...)-leading params.  Returns the split activations."""
@@ -126,3 +133,10 @@ def server_forward(cfg, p, acts, *, gates=None, fused_epilogue=False):
     x = fc(p["fc2"], x, gates["fc2"] if gates is not None else None)
     logits = fc(p["head"], x, None, act=False)
     return logits.to(torch.float32), torch.zeros((), device=logits.device)
+
+
+def forward(cfg, params, images, **kw):
+    """The whole model: client tower, then the server half (``kw`` to
+    :func:`server_forward`) -> (float32 logits, 0)."""
+    acts = client_forward(cfg, params["client"], images)
+    return server_forward(cfg, params["server"], acts, **kw)

@@ -1,5 +1,6 @@
-"""Carrying state between the reference package and the port, and the
-fp32 policy both the tests and ``chip_smoke.py`` run under.
+"""Carrying state between the reference package and the port, the fp32
+policy both the tests and ``chip_smoke.py`` run under, and the device
+policy of the trainers.
 
 State trees on both sides are nested dicts/lists with the same keys, so
 conversion is a tree map through numpy: the reference's parameters,
@@ -72,3 +73,14 @@ def strict_fp32():
     FMA accumulation."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def device_of(device) -> torch.device:
+    """``torch.device(device)`` for a trainer.  Trainers run on the card
+    unless the caller passes ``device="cpu"``; asking for a card that is
+    missing raises rather than falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a trainer was asked for a CUDA card and none is "
+                           "present; pass device='cpu' to run on the CPU")
+    return device

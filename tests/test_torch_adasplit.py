@@ -215,9 +215,13 @@ serving = ['configs.qwen2_0_5b', 'models.layers', 'models.mlp',
            'models.attention', 'models.transformer', 'models.decode',
            'kernels.flash_attention', 'launch', 'launch.steps',
            'launch.serve', 'serve', 'serve.lru', 'serve.engine',
-           'serve.scheduler', 'serve.continuous']
+           'serve.scheduler', 'serve.continuous', 'baselines',
+           'baselines.base', 'baselines.fed', 'baselines.split', 'utils',
+           'utils.tree',
+           'optim.sgd', 'optim.schedules', 'data.partition',
+           'launch.compare']
 missing = [m for m in serving if 'repro_torch.' + m not in mods]
-assert len(mods) >= 34 and not missing, (mods, missing)
+assert len(mods) >= 43 and not missing, (mods, missing)
 assert not bad, bad
 print(len(mods))
 """

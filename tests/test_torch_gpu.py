@@ -376,7 +376,7 @@ def test_continuous_steady_decode_step_makes_no_host_sync(cuda):
 
 
 @pytest.mark.parametrize("C,B,D", [(32, 32, 64), (3, 7, 16), (2, 33, 64),
-                                   (1, 2, 256), (4, 100, 48)])
+                                   (1, 2, 256), (4, 100, 48), (19, 32, 64)])
 def test_ntxent_stats_matches_plain_and_gradient_matches_cpu(cuda, C, B, D):
     gen = torch.Generator(device=cuda).manual_seed(B)
     raw = torch.randn((C, B, D), device=cuda, generator=gen)
@@ -648,7 +648,8 @@ def _ntxent_inputs(cuda, C, B, D, seed):
 
 
 @pytest.mark.parametrize("C,B,D", [(32, 32, 64), (3, 7, 16), (2, 33, 64),
-                                   (1, 2, 256), (4, 100, 48), (2, 128, 256)])
+                                   (1, 2, 256), (4, 100, 48), (2, 128, 256),
+                                   (19, 32, 64)])
 @pytest.mark.parametrize("normalize", [True, False], ids=["norm", "raw"])
 def test_ntxent_fused_forward_backward_match_plain(cuda, C, B, D, normalize):
     """The fused forward (loss, statistics, norms) and backward (dq) each
@@ -698,3 +699,87 @@ def test_ntxent_refuses_more_rows_than_one_cta_takes(cuda):
     y = torch.zeros((2, tnt.MAX_B + 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="rows per client"):
         tnt.ntxent_loss(q, y)
+
+
+# the joint step's global forms: (hparams, launches of one global
+# iteration at C=3, S=2 on the reduced LeNet (1 client block, 2 server
+# blocks): GEMMs, masked Adam, client Adam, NT-Xent forwards/backwards)
+JOINT_FORMS = {
+    "flat": (dict(server_grad_to_client=True), (1 + 1 + 2, 2, 2, 2)),
+    "per_client": (dict(server_grad_to_client=True, flat_joint=False),
+                   (1 + 1 + 2, 2, 2, 2)),
+    "per_scalar_fused": (dict(server_grad_to_client=True,
+                              mask_mode="per_scalar", fused_epilogue=True),
+                         (1 + 1 + 2, 2, 2, 2)),
+    "serialized": (dict(server_grad_to_client=True,
+                        serialize_server_updates=True),
+                   (1 + 2 * (1 + 2), 2, 1 + 2 * 2, 1 + 2)),
+    "loop": (dict(server_grad_to_client=True, global_batch=False),
+             (1 + 2 * (1 + 2), 2, 1 + 2 * 2, 1 + 2)),
+}
+
+
+@pytest.mark.parametrize("form", list(JOINT_FORMS))
+def test_joint_iteration_on_card_matches_cpu_and_launches(cuda, form):
+    """One global iteration of each joint form from one state on the card
+    and on the CPU: equal selection, CE to 1e-4, state within the Adam
+    sign-flip bound, the activation gradient billed down alike, and the
+    kernels launched as the form's hparams say."""
+    extra, (gemm, masked, client, nt) = JOINT_FORMS[form]
+    cfg = dataclasses.replace(get_config("lenet-cifar"), image_size=16,
+                              conv_channels=(4, 8, 8))
+    clients = mixed_noniid(n_clients=3, n_per_client=16, n_test=8, seed=0)
+    for c in clients:
+        c.x, c.test_x = c.x[:, :16, :16], c.test_x[:, :16, :16]
+    hp = AdaSplitHParams(rounds=1, eta=0.67, batch_size=8, round_scan=False,
+                         **extra)
+    gpu = AdaSplitTrainer(cfg, hp, clients, device="cuda")
+    cpu = AdaSplitTrainer(cfg, hp, clients, device="cpu")
+    cpu.set_state(gpu.get_state())
+    xs = np.stack([c.x[:8] for c in clients])
+    ys = np.stack([c.y[:8] for c in clients])
+    for m in (tcc, tma, tnt):
+        m.reset_launches()
+    sel_g, ce_g, _ = gpu.train_iteration(xs, ys, global_phase=True)
+    key = "panel_gemm_bias_relu" if hp.fused_epilogue else "panel_gemm"
+    assert (tcc.LAUNCHES[key], tma.LAUNCHES["masked_adam"],
+            tma.LAUNCHES["client_adam"], tnt.LAUNCHES["ntxent_stats"],
+            tnt.LAUNCHES["ntxent_backward"]) == (gemm, masked, client, nt,
+                                                 nt)
+    sel_c, ce_c, _ = cpu.train_iteration(xs, ys, global_phase=True)
+    np.testing.assert_array_equal(sel_g, sel_c)
+    np.testing.assert_allclose(ce_g, ce_c, rtol=1e-4)
+    assert gpu.meter.bandwidth_bytes == cpu.meter.bandwidth_bytes
+    off = total = 0
+    for a, b in zip(tree_leaves(gpu.get_state()),
+                    tree_leaves(cpu.get_state())):
+        d = np.abs(a.astype(np.float64) - b)
+        assert d.max(initial=0.0) <= 2.5 * hp.lr * 2
+        off += int(np.sum(d > 1e-5 + 1e-4 * np.abs(b)))
+        total += d.size
+    assert off <= 1e-3 * total
+
+
+def test_joint_client_adam_at_s_rows_bit_equal_to_plain(cuda):
+    """The joint step's client Adam at lenet-cifar's published widths
+    over S=19 selected rows, a step per row (one launch, the client
+    order): bit-equal to its plain version on the card."""
+    cfg = get_config("lenet-cifar")
+    tr = AdaSplitTrainer(cfg, AdaSplitHParams(rounds=1), mixed_noniid(
+        n_clients=19, n_per_client=1, n_test=1), device="cpu")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shapes = [tuple(l.shape) for l in tree_leaves(
+        {"c": tr.client_params, "p": tr.proj_params})]
+    leaves = _adam_leaves(cuda, shapes, False, gen)
+    step = torch.randint(1, 9, (19,), device=cuda, generator=gen,
+                         dtype=torch.int32)
+    b1t, b2t = tma.bias_corrections(step, 0.9, 0.999)
+    before = tma.LAUNCHES["client_adam"]
+    got = tma.adam_multi_cuda(leaves, b1t=b1t, b2t=b2t, client_order=True,
+                              **KW)
+    assert tma.LAUNCHES["client_adam"] == before + 1
+    want = tma.adam_multi_plain(leaves, b1t=b1t, b2t=b2t, client_order=True,
+                                **KW)
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)

@@ -9,10 +9,11 @@
 2. Against the port's eager rung (``round_scan=False``): the round rung
    and the epoch rung (``epoch_chunk_rounds`` 0, 1, 2) run the same torch
    ops in the same order, so the state is bit-equal, the selections and
-   ``orch.L``/``orch.S`` equal, the history records equal.
+   ``orch.L``/``orch.S`` equal, the history records equal — the joint
+   step and the serialized joint step included.
 3. Host syncs: one fetch per global round (round rung) and per global
    epoch (epoch rung), none in local ones, counted at the trainer's one
-   fetch point ``_fetch``.
+   fetch point ``_fetch``; the joint and serialized steps add none.
 4. Empty rounds (T == 0) still reset the bandit; eval points cut epochs.
 5. ``Meter.ingest_round``/``ingest_epoch`` against per-event billing, and
    the port's ``Orchestrator`` histories against the reference's.
@@ -43,13 +44,36 @@ SMALL = dict(image_size=16, conv_channels=(4, 8, 8))
 MODES = {"per_unit": {},
          "per_scalar_fused": dict(mask_mode="per_scalar",
                                   fused_epilogue=True),
-         "act_l1": dict(act_l1=1e-3)}
+         "act_l1": dict(act_l1=1e-3),
+         "joint": dict(server_grad_to_client=True),
+         "serialized_joint": dict(server_grad_to_client=True,
+                                  serialize_server_updates=True)}
 RUNGS = {"round": {},
          "epoch_chunk0": dict(epoch_scan=True),
          "epoch_chunk1": dict(epoch_scan=True, epoch_chunk_rounds=1),
          "epoch_chunk2": dict(epoch_scan=True, epoch_chunk_rounds=2)}
+# the one-fetch test's rungs: RUNGS, and the joint and serialized global
+# steps on them
+FETCH_RUNGS = {**RUNGS,
+               "round_joint": dict(server_grad_to_client=True),
+               "epoch_chunk1_joint": dict(epoch_scan=True,
+                                          epoch_chunk_rounds=1,
+                                          server_grad_to_client=True),
+               "round_serialized_joint": dict(
+                   server_grad_to_client=True,
+                   serialize_server_updates=True)}
 METER = ("bandwidth_bytes", "client_flops", "server_flops",
          "host_device_bytes", "interconnect_bytes")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The tensors here are small: torch's intra-op threads would only
+    contend with each other (and with other processes) on this box."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _clients(n=3, n_per_client=32):
@@ -199,12 +223,15 @@ def test_round_rung_is_the_default():
     ("epoch_chunk1", 0.5, [2]),      # chunking does not add fetches
     ("round", 1.0, [4]),             # all local: the client losses once,
     ("epoch_chunk2", 1.0, [4]),      # after the last round
+    ("round_joint", 0.5, [2, 3]),    # the joint and serialized steps
+    ("epoch_chunk1_joint", 0.5, [2]),  # read nothing more
+    ("round_serialized_joint", 0.5, [2, 3]),
 ])
 def test_one_fetch_per_global_round_or_epoch(monkeypatch, rung, kappa,
                                              want):
     _, clients = _clients()
     tr = _port(dict(rounds=4, kappa=kappa, eta=0.67, batch_size=8,
-                    **RUNGS[rung]), clients)
+                    **FETCH_RUNGS[rung]), clients)
     at, fetch = [], TTrainer._fetch
 
     def counting(self, tensors):
