@@ -47,8 +47,10 @@ time:
    serving runs (derived from ``serving_runs()`` through the engines'
    own batching and bucketing; bf16, causal, kv_len where ragged; each
    distinct B=1 admission prefill of the continuous runs, buckets 8 to
-   512, with its totals on a line of their own) and at
-   phase 6's f32 shape, against its plain version, with device times,
+   512, with its totals on a line of their own), at every prefill shape
+   of phase 7b's runs (``dense_runs()``: hd 128 and 96, totals per head
+   dim) and at phase 6's f32 shapes, against its plain version, with
+   device times,
    one ``scaled_dot_product_attention`` call as the library yardstick
    (and the kernel's ratio to it), host times per call of the wrapper
    and of SDPA, and the bound (bytes over 3.35 TB/s or the causal FLOPs
@@ -56,9 +58,10 @@ time:
    that rounds P once to bf16 before P V: it splits P into two bf16
    halves, so fewer of its outputs may differ from the plain version's
    and by less on average;
-6. qwen2-0.5b at full width cut to 2 layers, strict fp32: a prefill and
-   teacher-forced decode steps on the card and on the CPU, compared;
-   then a ragged six-request trace of mixed clients through
+6. qwen2-0.5b, granite-3-8b and phi3-mini-3.8b at full width cut to 2
+   layers, strict fp32: a prefill and teacher-forced decode steps on the
+   card and on the CPU, compared; then (qwen2-0.5b) a ragged
+   six-request trace of mixed clients through
    ``ContinuousEngine`` (3 slots), ``ServeEngine`` one request at a
    time and ``ServeEngine`` with mixed batches, on the card: the greedy
    tokens must be equal (the solo runs' smallest top-2 logit gap is
@@ -74,8 +77,19 @@ time:
    completes runs under ``sync_debug_mode("error")``, and one
    eight-slot gated decode step is profiled; the flash launches of
    each run must be 24 per prefill;
-8. a ``kernels`` JSON line (all eight kernels; flash's launches those of
-   every phase 7 run), then the final ``{"ok": true, ...}`` line.
+7b. dense serving at head dims 128 and 96, full width, all layers,
+   bf16, each run followed by its peak device memory: granite-3-8b (40
+   layers, GQA 32/8) through the session CLI, the mixed FIFO engine and
+   ``ContinuousEngine`` on phase 7's 16 requests (``EngineStats`` equal
+   to the dry run, steady steps under ``sync_debug_mode("error")``), a
+   prefill and a decode step profiled; phi3-mini-3.8b (32 layers, hd 96)
+   and olmo-1b (16 layers) through the session CLI; flash launches one a
+   layer per prefill;
+8. Table 1 through ``launch/compare.py`` and the baselines card vs CPU
+   (phase 8);
+9. a ``kernels`` JSON line (all eight kernels; flash's launches those of
+   every phase 7 and 7b run, its times the hd-64 session and FIFO
+   totals), then the final ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the repository around it, and imports nothing
 of JAX or of the JAX package.
@@ -109,8 +123,9 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # share of outputs that differ from the plain version's, and its mean
 # error, must each be at most this fraction of the control's
 SPLIT_P_MARGIN = 0.25
-# card vs CPU, qwen2-0.5b at full width, 2 layers, strict fp32: other
-# summation orders in f32 GEMMs of width <= 4864
+# card vs CPU, qwen2-0.5b, granite-3-8b and phi3-mini-3.8b at full width,
+# 2 layers, strict fp32: other summation orders in f32 GEMMs of width
+# <= 12,800
 LM_REL_TOL = 1e-4
 # NT-Xent statistics against their plain version: f32 dots of D terms and
 # f32 sums of B terms in another order, relative to the largest magnitude
@@ -1472,6 +1487,13 @@ ADMISSION = "admission"         # label of the continuous runs' B=1 prefills
 # what sync_debug_mode("warn") says of each host sync it sees
 SYNC_WARNING = "called a synchronizing CUDA operation"
 LM_TWO_DEVICE = {"n_layers": 2, "batch": 2, "prompt_len": 64, "decode": 4}
+# phase 6's card-vs-CPU configs, full width cut to 2 layers, strict fp32
+TWO_DEVICE_ARCHS = (SERVE_ARCH, "granite-3-8b", "phi3-mini-3.8b")
+# phase 7b: dense serving at head dims 128 and 96, full width, all layers,
+# bf16: granite-3-8b on every path but the folded per-client FIFO mode,
+# the other two through the session CLI
+DENSE_ARCHS = ("granite-3-8b", "phi3-mini-3.8b", "olmo-1b")
+ALL_PATHS_ARCH = "granite-3-8b"
 
 
 def serving_runs():
@@ -1490,6 +1512,7 @@ def serving_runs():
     lens = [5, 12, 23, 47, 90, 170, 300, 512]
     budgets = [1, 48, 7, 33, 2, 20, 40, 12]
     return {
+        "profile": True,
         "session": {"batch": 8, "prompt_len": 512, "gen": 32, "client": 0,
                     "n_clients": n_clients},
         "requests": requests,
@@ -1506,9 +1529,26 @@ def serving_runs():
                 "cache_len": 576}}}
 
 
-def session_argv(runs):
+def dense_runs(arch):
+    """Phase 7b's runs of ``arch``: phase 7's session and, for
+    ``ALL_PATHS_ARCH``, the mixed (gated) FIFO engine and the continuous
+    engine on the FIFO engines' 16 requests, its prefill and decode
+    profiled.  The folded per-client FIFO mode is left out: granite's
+    four folded servers (~52.6 GB) beside the model (~16.7 GB) leave no
+    margin on 80 GB, and qwen2-0.5b covers the mode."""
+    runs = serving_runs()
+    every = arch == ALL_PATHS_ARCH
+    runs["engines"] = {k: v for k, v in runs["engines"].items()
+                       if every and k == "mixed"}
+    runs["continuous"] = {k: v for k, v in runs["continuous"].items()
+                          if every and k == "fifo traffic"}
+    runs["profile"] = every
+    return runs
+
+
+def session_argv(cfg, runs):
     s = runs["session"]
-    return ["--arch", SERVE_ARCH, "--fold-mask", "--client", str(s["client"]),
+    return ["--arch", cfg.name, "--fold-mask", "--client", str(s["client"]),
             "--n-clients", str(s["n_clients"]), "--batch", str(s["batch"]),
             "--prompt-len", str(s["prompt_len"]), "--gen", str(s["gen"])]
 
@@ -1617,30 +1657,42 @@ def split_p_check(label, got, want, control):
                              "version than a single-rounded P")
 
 
-def check_flash(cfg, runs, gen):
-    """The kernel at every serving prefill shape (bf16, causal, kv_len
-    where ragged) and at each of phase 6's f32 ones (its engines' and
-    the card-vs-CPU prefill's), against its plain version;
-    device times of the kernel, the plain version and one SDPA call
-    (library yardstick only: the port never calls it); the bound from
-    the bytes each call must move and the causal, kv_len-limited pairs
-    it must compute; host times per call of the wrapper and of SDPA.  In
-    bf16, ``split_p_check`` against ``flash_rounded_p``.  Totals are
-    over the bf16 session and FIFO shapes (the ``kernels`` line's, as
-    before the continuous runs), and apart over the bf16 B=1 admission
-    shapes (returned under ``"admission"``)."""
+def flash_cases(cfg, runs, f32_shapes, label=""):
+    """(cfg, label, B, S, kv_len, dtype) of phase 5 for one config: bf16
+    at every prefill shape ``runs`` give the kernel, f32 at
+    ``f32_shapes``; labels prefixed with ``label``."""
+    import torch
+    return [(cfg, label + sh[0]) + sh[1:] + (dt,)
+            for shapes, dt in ((prefill_shapes(runs), torch.bfloat16),
+                               (f32_shapes, torch.float32))
+            for sh in shapes]
+
+
+def two_device_shape():
+    two = LM_TWO_DEVICE
+    return ("card-vs-CPU prefill", two["batch"], two["prompt_len"], None)
+
+
+def check_flash(cases, gen):
+    """The kernel at every case of ``flash_cases`` (causal, kv_len where
+    ragged): phase 7's and 7b's serving prefill shapes in bf16 and
+    phase 6's f32 ones (its engines' and the card-vs-CPU prefills),
+    against its plain version; device times of the kernel, the plain
+    version and one SDPA call (library yardstick only: the port never
+    calls it); the bound from the bytes each call must move and the
+    causal, kv_len-limited pairs it must compute; host times per call of
+    the wrapper and of SDPA.  In bf16, ``split_p_check`` against
+    ``flash_rounded_p``.  Totals per head dim over the bf16 session and
+    FIFO shapes, and apart over the bf16 B=1 admission shapes.  Returns
+    the hd-64 session and FIFO totals (the ``kernels`` line's) with the
+    largest error of every case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")
-    tot = dict.fromkeys(keys + ("max_abs_err",), 0.0)
-    adm = dict.fromkeys(keys, 0.0)
-    two = LM_TWO_DEVICE
-    cases = [sh + (torch.bfloat16,) for sh in prefill_shapes(runs)] + [
-        sh + (torch.float32,) for sh in fp32_prefill_shapes() + [
-            ("card-vs-CPU prefill", two["batch"], two["prompt_len"], None)]]
-    for label, B, S, lens, dtype in cases:
+    totals, worst = {}, 0.0
+    for cfg, label, B, S, lens, dtype in cases:
+        Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         q, k, v = (torch.randn((B, S, h, hd), device="cuda", generator=gen)
                    .to(dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv))
         kv_len = None if lens is None else torch.tensor(
@@ -1690,27 +1742,26 @@ def check_flash(cfg, runs, gen):
               f"sdpa_host_us={lib_host:.1f}")
         if dtype == torch.bfloat16:
             split_p_check(label, got, want, flash_rounded_p(q, k, v, kv_len))
-        tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        if dtype == torch.bfloat16:
-            into = adm if label.startswith(ADMISSION) else tot
+            kind = "B=1 admission" if ADMISSION in label else \
+                "session and FIFO prefill"
+            into = totals.setdefault((hd, kind), dict.fromkeys(keys, 0.0))
             for key, val in zip(keys, (ms, plain_ms, lib_ms, bms, nbytes,
                                        flops)):
                 into[key] += val
+        worst = max(worst, err)
         del q, k, v, got, want, mask
-    tot["bound_by"] = bound(tot["bytes"], tot["flops"], BF16_FLOP_PER_S)[1]
-    for what, t in (("session and FIFO prefill", tot),
-                    ("B=1 admission", adm)):
-        print(f"  flash_attention total over the bf16 {what} shapes: "
-              f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+    for (hd, what), t in sorted(totals.items()):
+        t["bound_by"] = bound(t["bytes"], t["flops"], BF16_FLOP_PER_S)[1]
+        print(f"  flash_attention total over the bf16 {what} shapes at "
+              f"hd={hd}: ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
               f"sdpa_ms={t['library_ms']:.4f} "
               f"ms/sdpa={t['ms'] / t['library_ms']:.3f} "
-              f"bound_ms={t['bound_ms']:.4f}")
-    tot["admission"] = adm
-    return tot
+              f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+    return dict(totals[(64, "session and FIFO prefill")], max_abs_err=worst)
 
 
-def lm_on_two_devices():
-    """qwen2-0.5b at full width cut to 2 layers, strict fp32: one prefill
+def lm_on_two_devices(arch):
+    """``arch`` at full width cut to 2 layers, strict fp32: one prefill
     and teacher-forced decode steps on the card and on the CPU, from
     the same params (the port's own init, on the card)."""
     import dataclasses
@@ -1722,7 +1773,7 @@ def lm_on_two_devices():
     from repro_torch.models import decode as dec
     from repro_torch.weights import tree_map
     two = LM_TWO_DEVICE
-    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+    cfg = dataclasses.replace(get_config(arch),
                               n_layers=two["n_layers"], dtype="float32")
     B, S = two["batch"], two["prompt_len"]
     gpu = init_serve_params(cfg, 0, "float32", device="cuda")
@@ -1749,14 +1800,16 @@ def lm_on_two_devices():
         eq = bool(torch.equal(tok, b.argmax(-1).to(torch.int32)))
         same &= eq or tie
         steps.append(tok[:, 0].tolist())
-    print(f"  prefill B={B} S={S} + {two['decode']} decode steps, "
-          f"{two['n_layers']} layers of width {cfg.d_model}: flash launches "
+    print(f"  [{arch}] prefill B={B} S={S} + {two['decode']} decode steps, "
+          f"{two['n_layers']} layers of width {cfg.d_model} (hd "
+          f"{cfg.head_dim}): flash launches "
           f"on the card {launches}; logits max rel err {worst:.3e}; greedy "
           f"tokens equal on both devices: {same} (card's: {steps})")
     if launches != two["n_layers"]:
-        raise AssertionError(f"card prefill launched flash {launches} times")
+        raise AssertionError(f"[{arch}] card prefill launched flash "
+                             f"{launches} times")
     if not (worst < LM_REL_TOL and same):
-        raise AssertionError("card and CPU LM steps disagree")
+        raise AssertionError(f"[{arch}] card and CPU LM steps disagree")
 
 
 # phase 6's engines: the reference test's SPEC (tests/test_serve_continuous.py)
@@ -1972,10 +2025,11 @@ def run_continuous(cfg, params, masks, runs, fifo_tokens, device="cuda"):
     ``sync_debug_mode("error")``, the others under "warn", whose sync
     warnings must be the engine's own.  Each run's ``EngineStats`` must
     be its scheduler dry run's, its admission log 0..n-1, its gate
-    cache one miss a client, and each admission prefill 24 flash
-    launches.  Then one eight-slot gated decode step in steady state is
-    profiled.  Returns per run its flash launches and admission
-    prefills."""
+    cache one miss a client, and each admission prefill one flash launch
+    a layer (checked by the caller); each run's peak device memory is
+    printed.  Then, where the runs hold "every bucket", one eight-slot
+    gated decode step in steady state is profiled.  Returns per run its
+    flash launches and admission prefills."""
     import dataclasses
     import warnings
     import numpy as np
@@ -2030,7 +2084,7 @@ def run_continuous(cfg, params, masks, runs, fifo_tokens, device="cuda"):
         want, log = scheduler_dry_run(run)
         got = {k: getattr(st, k) for k in want}
         lat = np.array([r.latency_s for r in done])
-        tag = f"  [continuous {name}]"
+        tag = f"  [{cfg.name} continuous {name}]"
         print(f"{tag} {len(done)} requests in {wall} s: tokens/s="
               f"{st.tokens / wall} completed/s={st.completed / wall} "
               f"latency_s p50={np.median(lat)} max={lat.max()} "
@@ -2067,7 +2121,10 @@ def run_continuous(cfg, params, masks, runs, fifo_tokens, device="cuda"):
                                  "the last admission, host syncs other than "
                                  "the engine's own, or admission order or "
                                  "gate cache counts off")
+        peak_memory(tag)
         out[f"continuous {name}"] = (launches, n_adm)
+    if "every bucket" not in runs["continuous"]:
+        return out
 
     # where a decode step's time goes: eight slots of four clients, gated
     run = runs["continuous"]["every bucket"]
@@ -2096,8 +2153,20 @@ def run_continuous(cfg, params, masks, runs, fifo_tokens, device="cuda"):
     return out
 
 
+def peak_memory(tag):
+    """Print the card's peak allocated memory since the last reset, and
+    reset it."""
+    import torch
+    print(f"{tag} max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+
 def run_serving(cfg, runs, device="cuda"):
-    """The session CLI and the engine in both modes, all layers, bf16.
+    """``cfg`` at full width, all layers, bf16: the session CLI, the FIFO
+    engine in each mode of ``runs["engines"]`` and the continuous runs
+    of ``runs["continuous"]``, each followed by its peak device memory;
+    then, where ``runs["profile"]``, a profiled prefill and decode step.
     Returns per run its flash launches and prefill calls."""
     import dataclasses
     import numpy as np
@@ -2107,24 +2176,31 @@ def run_serving(cfg, runs, device="cuda"):
     from repro_torch.launch.steps import init_serve_params
     from repro_torch.models import decode as dec
     from repro_torch.serve import ServeEngine
+    from repro_torch.weights import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
     params = init_serve_params(cfg, 0, device=device)
+    peak_memory(f"  [{cfg.name} init] {len(tree_leaves(params))} leaves, "
+                f"{sum(t.numel() for t in tree_leaves(params))} params:")
     masks = tserve.random_masks(cfg, runs["n_clients"], device=device)
     warm = torch.ones((2, 64), dtype=torch.int32, device=device)
     tserve.serve_session(cfg, params, warm, 2, device=device)   # warm-up
     out = {}
     s = runs["session"]
     fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     with timed(dec, "prefill") as pre, timed(tserve, "serve_session") as ses:
-        toks = tserve.main(session_argv(runs) + ["--device", device])
+        toks = tserve.main(session_argv(cfg, runs) + ["--device", device])
     if toks.shape != (s["batch"], s["gen"]) or not (
             (toks >= 0) & (toks < cfg.vocab_size)).all():
         raise AssertionError(f"session tokens {toks.shape} out of range")
     dec_ms = (ses[0] - pre[0]) / (s["gen"] - 1) * 1e3
-    print(f"  [session] B={s['batch']} prompt={s['prompt_len']} "
+    print(f"  [{cfg.name} session] B={s['batch']} prompt={s['prompt_len']} "
           f"gen={s['gen']}: tokens/s={s['batch'] * s['gen'] / ses[0]} "
           f"prefill_ms={pre[0] * 1e3} decode_ms_per_token={dec_ms} "
           f"session_s={ses[0]} flash_launches="
           f"{fa.LAUNCHES['flash_attention']} prefills={len(pre)}")
+    peak_memory(f"  [{cfg.name} session] (its own params beside the "
+                "engines')")
     out["session"] = (fa.LAUNCHES["flash_attention"], len(pre))
     tokens = {}
     for mode, kw in runs["engines"].items():
@@ -2148,23 +2224,30 @@ def run_serving(cfg, runs, device="cuda"):
                                  "with in-vocab tokens")
         tokens[mode] = {r.req_id: r.output for r in done}
         lat = np.array([r.latency_s for r in done])
-        print(f"  [engine {mode}] {len(done)} requests in {wall} s: "
+        print(f"  [{cfg.name} engine {mode}] {len(done)} requests in "
+              f"{wall} s: "
               f"tokens/s={st.tokens / wall} completed/s={st.completed / wall}"
               f" prefill_ms={[round(x * 1e3, 3) for x in pre]} "
               f"decode_ms_per_step={(wall - sum(pre)) / st.decode_steps * 1e3}"
               f" latency_s p50={np.median(lat)} max={lat.max()} "
               f"occupancy={st.occupancy} flash_launches="
               f"{fa.LAUNCHES['flash_attention']}")
-        print(f"  [engine {mode}] EngineStats "
+        print(f"  [{cfg.name} engine {mode}] EngineStats "
               + json.dumps(dataclasses.asdict(st)))
+        peak_memory(f"  [{cfg.name} engine {mode}]")
         out[mode] = (fa.LAUNCHES["flash_attention"], st.batches)
-    a, b = tokens["mixed"], tokens["per_client"]
-    agree = np.mean([np.mean(a[i] == b[i]) for i in a])
-    print(f"  gated (mixed) vs folded (per-client) batches: {agree:.4f} of "
-          "tokens equal (bf16 GEMMs of other batch shapes may tip a "
-          "near-tie; equality is held in f32 by tests/test_torch_serve.py)")
-    out.update(run_continuous(cfg, params, masks, runs, tokens["mixed"],
-                              device))
+    if len(tokens) == 2:
+        a, b = tokens["mixed"], tokens["per_client"]
+        agree = np.mean([np.mean(a[i] == b[i]) for i in a])
+        print(f"  gated (mixed) vs folded (per-client) batches: {agree:.4f} "
+              "of tokens equal (bf16 GEMMs of other batch shapes may tip a "
+              "near-tie; equality is held in f32 by "
+              "tests/test_torch_serve.py)")
+    if runs["continuous"]:
+        out.update(run_continuous(cfg, params, masks, runs, tokens["mixed"],
+                                  device))
+    if not runs["profile"]:
+        return out
 
     # where the time goes: the session's prefill and its decode steps
     S = s["prompt_len"]
@@ -2175,11 +2258,12 @@ def run_serving(cfg, runs, device="cuda"):
     def prefill():
         held["out"] = dec.prefill(cfg, params, prompts,
                                   cache_len=S + s["gen"] + 1)
-    profile_calls(prefill, 2, "session prefill", "prefills", "prefill")
+    profile_calls(prefill, 2, f"{cfg.name} session prefill", "prefills",
+                  "prefill")
     lg, cache = held["out"]
     tok = lg.argmax(-1).to(torch.int32)
     profile_calls(lambda: dec.decode_step(cfg, params, tok, cache, S), 4,
-                  "session decode", "decode steps", "step")
+                  f"{cfg.name} session decode", "decode steps", "step")
     return out
 
 
@@ -2268,17 +2352,27 @@ def main() -> int:
     # phase 5 ---------------------------------------------------------
     lm = get_config(SERVE_ARCH)
     serving = serving_runs()
+    dense = {arch: (get_config(arch), dense_runs(arch))
+             for arch in DENSE_ARCHS}
     print(f"phase 5: flash attention against its plain version, at "
-          f"phase 7's prefill shapes ({SERVE_ARCH}; the continuous runs' "
-          "B=1 admissions too) and phase 6's f32 ones")
-    flash = check_flash(lm, serving, gen)
+          f"phase 7's prefill shapes ({SERVE_ARCH}, hd 64; the continuous "
+          f"runs' B=1 admissions too), phase 7b's ({', '.join(DENSE_ARCHS)};"
+          " hd 128 and 96) and phase 6's f32 ones")
+    cases = flash_cases(lm, serving, fp32_prefill_shapes()
+                        + [two_device_shape()])
+    for arch, (cfg_d, runs_d) in dense.items():
+        cases += flash_cases(cfg_d, runs_d, [two_device_shape()]
+                             if arch in TWO_DEVICE_ARCHS else [], arch + " ")
+    flash = check_flash(cases, gen)
     phase_done(5)
 
     # phase 6 ---------------------------------------------------------
-    print(f"phase 6: {SERVE_ARCH} prefill and decode on the card and on "
-          "the CPU, and the continuous, solo and mixed FIFO engines on the "
-          "card (full width, 2 layers, strict fp32)")
-    lm_on_two_devices()
+    print(f"phase 6: {', '.join(TWO_DEVICE_ARCHS)} prefill and decode on "
+          "the card and on the CPU, and the continuous, solo and mixed FIFO "
+          f"engines on the card ({SERVE_ARCH}) (full width, 2 layers, "
+          "strict fp32)")
+    for arch in TWO_DEVICE_ARCHS:
+        lm_on_two_devices(arch)
     engines_agree_fp32()
     phase_done(6)
 
@@ -2295,6 +2389,24 @@ def main() -> int:
               f"x {prefills} prefills")
     launches["flash_attention"] = sum(n for n, _ in served.values())
     phase_done(7)
+
+    # phase 7b --------------------------------------------------------
+    print(f"phase 7b: serving at full width, all layers, bf16: "
+          f"{ALL_PATHS_ARCH} (hd 128) through the session CLI, the mixed "
+          "FIFO engine and ContinuousEngine; the others through the "
+          "session CLI")
+    for arch, (cfg_d, runs_d) in dense.items():
+        served = run_serving(cfg_d, runs_d)
+        for run, (n, prefills) in served.items():
+            if n != cfg_d.n_layers * prefills:
+                return fail(f"[{arch} {run}] {n} flash launches for "
+                            f"{prefills} prefills of {cfg_d.n_layers} "
+                            "layers")
+            print(f"  [{arch} {run}] flash launches {n} = "
+                  f"{cfg_d.n_layers} per prefill x {prefills} prefills")
+        launches["flash_attention"] += sum(n for n, _ in served.values())
+        torch.cuda.empty_cache()
+    phase_done("7b")
 
     # phase 8 ---------------------------------------------------------
     print(f"phase 8: Table 1 (Mixed-NonIID) at lenet-cifar's published "

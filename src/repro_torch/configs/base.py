@@ -4,9 +4,10 @@ and the dense decoder-only LM path read, and the registry.
 A copy of the reference's ``configs/base.py`` cut to the conv backbone
 and the dense LM stack: the M-RoPE, SSM, MoE-capacity and
 encoder-decoder fields and branches are left out (their slices bring
-them).  ``n_experts`` and ``attn_layer_period`` stay at 0 on every
-registered config and only keep ``is_moe_layer``/``is_attn_layer``
-and ``split_layer`` the reference's functions.
+them), in ``param_count`` too.  ``n_experts`` and ``attn_layer_period``
+stay at 0 on every registered config and only keep
+``is_moe_layer``/``is_attn_layer`` and ``split_layer`` the reference's
+functions.
 """
 from __future__ import annotations
 
@@ -106,10 +107,35 @@ class ModelConfig:
                       moe_layer_period=2, moe_layer_offset=1, n_layers=4)
         return replace(self, **kw)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding included once): the
+        reference's conv and dense branches."""
+        if self.is_conv:
+            # rough lenet-style count
+            total, cin = 0, 3
+            for c in self.conv_channels:
+                total += cin * c * 25 + c
+                cin = c
+            total += cin * 16 * 120 + 120 * 84 + 84 * self.n_classes
+            return total
+        d = self.d_model
+        emb = self.vocab_size * d
+        per_attn = (self.n_heads + 2 * self.n_kv_heads) * self.head_dim * d \
+            + self.n_heads * self.head_dim * d
+        per_layer = (per_attn if self.n_heads else 0) + 3 * d * self.d_ff
+        return emb + (0 if self.tie_embeddings else emb) \
+            + self.n_layers * per_layer
+
+    def active_param_count(self) -> int:
+        """Params touched per token: all of them in a dense model (the
+        reference subtracts unrouted experts, which no config here has)."""
+        return self.param_count()
+
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
-ARCH_MODULES = ["lenet_cifar", "qwen2_0_5b"]
+ARCH_MODULES = ["lenet_cifar", "qwen2_0_5b", "olmo_1b", "granite_3_8b",
+                "phi3_mini_3_8b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -119,8 +145,20 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
-        for m in ARCH_MODULES:
-            importlib.import_module(f"repro_torch.configs.{m}")
+        load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def load_all() -> Dict[str, ModelConfig]:
+    for m in ARCH_MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+    return dict(_REGISTRY)
+
+
+def list_archs(include_paper: bool = False):
+    """The registered LM archs, sorted (``lenet-cifar`` only with
+    ``include_paper``)."""
+    load_all()
+    return sorted(n for n in _REGISTRY if n != "lenet-cifar" or include_paper)

@@ -14,30 +14,41 @@
 // dim contiguous), so the model's (B, S, H, hd) tensors come in as
 // transposed views with no copy.  A query row that sees no key is zeros.
 //
-// What bounds it on an H100.  On the serving path (Hq 14, Hkv 2, hd 64,
-// bf16, causal, S up to 512) one call must read q, k, v and write o once:
-// at B=8, S=512 that is 16.8 MB, 5.0 us at 3.35 TB/s, just above the
+// Head dims 64, 96 and 128 (the TPU kernel takes any; these are the head
+// dims of the configs the port serves).  Another head dim is refused.
+//
+// What bounds it on an H100.  On the serving path (bf16, causal, S up to
+// 512) one call must read q, k, v and write o once.  qwen2-0.5b (Hq 14,
+// Hkv 2, hd 64) at B=8, S=512: 16.8 MB, 5.0 us at 3.35 TB/s, just above the
 // 4 * hd * (S^2 / 2) * B * Hq = 3.8 GFLOP of its two products, 3.8 us at
-// the 989 TFLOP/s of the bf16 tensor cores.  So the card's bound is bytes,
-// with operations close behind; either way only the tensor cores and loads
-// that overlap the math come near it.  The f32 SIMT design this replaces
-// (fp32 FMAs from K/V staged as f32, each load followed by a barrier) took
-// 60x the bound.
+// the 989 TFLOP/s of the bf16 tensor cores.  granite-3-8b (Hq 32, Hkv 8,
+// hd 128) at the same B and S: 84 MB, 25 us, against 17.2 GFLOP, 17.4 us.
+// So the card's bound is bytes, with operations close behind; either way
+// only the tensor cores and loads that overlap the math come near it.  The
+// f32 SIMT design this replaces (fp32 FMAs from K/V staged as f32, each
+// load followed by a barrier) took 60x the bound.
 //
 // Design, bf16 (the serving path).  One warpgroup (128 threads) per 64-row
 // q tile, grid (q tiles, Hq, B), the longest causal tiles launched first;
-// GQA reads kv head h / G directly.
-//  - TMA brings the q tile once and the 64x64 K and V tiles through a
+// GQA reads kv head h / G directly.  The head dim is carried in 64-column
+// chunks (one for hd 64, two for 96 and 128): a 128-byte swizzle row holds
+// at most 64 bf16 values.
+//  - TMA brings the q tile once and the 64-key K and V tiles through a
 //    two-stage ring in shared memory (one mbarrier per stage; the next
-//    tile's load is issued before this tile's math), 128-byte swizzled.  The
-//    tensor maps are 4-D (hd, S, H, B) over the strided views, encoded on
-//    the host per call through the driver entry point that the runtime
-//    hands out (cudaGetDriverEntryPointByVersion), so nothing links -lcuda.
-//    Rows past S come in as zeros.
-//  - S = Q K^T is four wgmma.mma_async m64n64k16 (bf16 in, f32 out in
-//    registers), A = Q and B = K both K-major in shared memory.  The f32
-//    scores are scaled by log2(e) / sqrt(hd) after the product (q is not
-//    pre-scaled in bf16, which would round it).
+//    tile's load is issued before this tile's math), 128-byte swizzled, one
+//    64x64 box per chunk.  The tensor maps are 4-D (hd, S, H, B) over the
+//    strided views, encoded on the host per call through the driver entry
+//    point that the runtime hands out (cudaGetDriverEntryPointByVersion),
+//    so nothing links -lcuda.  Rows past S come in as zeros, and so do
+//    columns 96-127 of hd 96's second chunk (the map's head axis is 96):
+//    they add nothing to Q K^T, and the output columns they make in P V
+//    are not stored.  Shared memory: 5 tiles of 8 KB per chunk (41 KB at
+//    hd 64, 81 KB at 96 and 128, past the 48 KB default: opted in once per
+//    head dim and device).
+//  - S = Q K^T is hd / 16 (4, 6 or 8) wgmma.mma_async m64n64k16 (bf16 in,
+//    f32 out in registers), A = Q and B = K both K-major in shared memory.
+//    The f32 scores are scaled by log2(e) / sqrt(hd) after the product (q
+//    is not pre-scaled in bf16, which would round it).
 //  - Masks (causal, window, kv_len) and the online softmax run on the
 //    accumulator fragment: each thread holds 2 rows x 16 columns; the row
 //    max and sum combine across the quad with shuffles; m and l are f32;
@@ -48,15 +59,19 @@
 //    fragment of S is, element for element, the A fragment of a 16-bit
 //    m64k16 operand) and B = the V tile, MN-major (transposed by wgmma).
 //    P is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), two products
-//    per k-step, so P keeps ~16 bits as in the f32 reference instead of the
-//    8 that rounding it once to bf16 (the TPU kernel's, and SDPA's, choice)
-//    would keep.
+//    per k-step and output chunk (one 32-register accumulator fragment per
+//    64 columns of hd), so P keeps ~16 bits as in the f32 reference instead
+//    of the 8 that rounding it once to bf16 (the TPU kernel's, and SDPA's,
+//    choice) would keep.
 //  - Epilogue: divide by l (0 gives zeros), round to bf16, store through
 //    the strides, rows past S masked.
 // Design, f32 (the strict-fp32 card-vs-CPU prefill and the f32 tests): the
 // SIMT kernel below, kept so that no product runs in TF32: two threads per
-// q row, K/V tiles staged in shared memory, fp32 FMAs.  The path is chosen
-// by dtype only.
+// q row, K/V tiles staged in shared memory, fp32 FMAs.  At hd 96 and 128
+// the staged tile is 32 keys (static shared memory stays under 48 KB, and
+// the scores of a tile fit in registers beside the 64 q values and 64
+// accumulators a thread holds at hd 128).  The path is chosen by dtype
+// only.
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,13 +115,15 @@ __device__ __forceinline__ void store4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-template <int HD>
+// BN keys per staged K/V tile: 64 at hd 64, 32 at hd 96 and 128
+template <int HD, int BN>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p) {
   constexpr int kChunks = HD / 4;      // 4-wide chunks per row
   constexpr int kMine = kChunks / 2;   // chunks per thread
   constexpr int kHalf = HD / 2;        // dims per thread
-  __shared__ __align__(16) float Ks[kBN][HD];
-  __shared__ __align__(16) float Vs[kBN][HD];
+  static_assert(BN * kChunks % kThreads == 0, "whole staging passes");
+  __shared__ __align__(16) float Ks[BN][HD];
+  __shared__ __align__(16) float Vs[BN][HD];
 
   const int tid = threadIdx.x;
   const int half = tid & 1;
@@ -143,12 +160,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
   int hi = kv_end;
   if (p.causal) hi = min(hi, q0 + kBM);
   int lo = p.window ? max(0, q0 - p.window + 1) : 0;
-  lo = (lo / kBN) * kBN;
+  lo = (lo / BN) * BN;
 
-  for (int k0 = lo; k0 < hi; k0 += kBN) {
+  for (int k0 = lo; k0 < hi; k0 += BN) {
     __syncthreads();  // the previous tile is consumed
 #pragma unroll
-    for (int it = 0; it < kBN * kChunks / kThreads; ++it) {
+    for (int it = 0; it < BN * kChunks / kThreads; ++it) {
       const int idx = tid + it * kThreads;
       const int r = idx / kChunks, c = idx % kChunks;
       const int key = k0 + r;
@@ -162,10 +179,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
     }
     __syncthreads();
 
-    float s[kBN];
+    float s[BN];
     float mt = -CUDART_INF_F;
 #pragma unroll
-    for (int j = 0; j < kBN; ++j) {
+    for (int j = 0; j < BN; ++j) {
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < kMine; ++i) {
@@ -189,7 +206,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
 #pragma unroll
       for (int d = 0; d < kHalf; ++d) acc[d] *= corr;
 #pragma unroll
-      for (int j = 0; j < kBN; ++j) {
+      for (int j = 0; j < BN; ++j) {
         const float pj = exp2f(s[j] - m_new);
         l += pj;
 #pragma unroll
@@ -223,8 +240,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
 // ---------------------------------------------------------------------------
 
 constexpr uint32_t kTileBytes = kBM * 64 * 2;  // one 64x64 bf16 tile, 8 KB
-// Q, K[2], V[2], each 1024-byte aligned for the 128-byte swizzle
-constexpr uint32_t kSmemBytes = 5 * kTileBytes + 1024;
+constexpr int kMaxDevices = 64;
+
+// 64-column chunks of the head dim, and the shared memory of one CTA: Q,
+// K[2], V[2] per chunk, each tile 1024-byte aligned for the 128-byte swizzle
+template <int HD>
+struct Bf16Cfg {
+  static constexpr int kChunks = (HD + 63) / 64;
+  static constexpr int kSteps = HD / 16;  // k-steps of 16 over hd in Q K^T
+  static constexpr uint32_t kSmem = 5 * kChunks * kTileBytes + 1024;
+  static_assert(HD % 16 == 0 && HD <= 128, "hd 64, 96 or 128");
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -256,14 +282,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// one 64 (hd) x 64 (seq) box at (0, s, h, b) of a 4-D (hd, S, H, B) map
+// one 64 (hd) x 64 (seq) box at (d, s, h, b) of a 4-D (hd, S, H, B) map
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int s, int h, int b) {
+                                         uint32_t bar, int d, int s, int h, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(s), "r"(h), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(s), "r"(h), "r"(b)
       : "memory");
+}
+
+// the tile of every chunk of hd, 64 columns each, into consecutive 8 KB tiles
+template <int NC>
+__device__ __forceinline__ void tma_load_chunks(uint32_t dst, const CUtensorMap* map,
+                                                uint32_t bar, int s, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) tma_load(dst + c * kTileBytes, map, bar, 64 * c, s, h, b);
 }
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
@@ -354,18 +388,22 @@ __device__ __forceinline__ bool visible(int row, int key, int kv_end,
          (!p.window || key > row - p.window);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const Params p) {
+  constexpr int NC = Bf16Cfg<HD>::kChunks;
+  constexpr uint32_t kChunkBytes = NC * kTileBytes;  // one tile, every chunk
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];  // q, K/V stage 0, stage 1
 
+  // chunk c of a tile at + c * kTileBytes
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
-  const uint32_t sK[2] = {base + kTileBytes, base + 2 * kTileBytes};
-  const uint32_t sV[2] = {base + 3 * kTileBytes, base + 4 * kTileBytes};
+  const uint32_t sK[2] = {base + kChunkBytes, base + 2 * kChunkBytes};
+  const uint32_t sV[2] = {base + 3 * kChunkBytes, base + 4 * kChunkBytes};
   const uint32_t bar_q = smem_addr(&bars[0]);
   const uint32_t bar_kv[2] = {smem_addr(&bars[1]), smem_addr(&bars[2])};
 
@@ -390,19 +428,23 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (tid == 0 && n_tiles > 0) {
-    mbar_expect_tx(bar_q, kTileBytes);
-    tma_load(sQ, &tq, bar_q, q0, h, b);
-    mbar_expect_tx(bar_kv[0], 2 * kTileBytes);
-    tma_load(sK[0], &tk, bar_kv[0], lo, hk, b);
-    tma_load(sV[0], &tv, bar_kv[0], lo, hk, b);
+    // a box past the map's edges (rows past S, hd 96's columns 96-127)
+    // comes in as zeros and still counts its full bytes
+    mbar_expect_tx(bar_q, kChunkBytes);
+    tma_load_chunks<NC>(sQ, &tq, bar_q, q0, h, b);
+    mbar_expect_tx(bar_kv[0], 2 * kChunkBytes);
+    tma_load_chunks<NC>(sK[0], &tk, bar_kv[0], lo, hk, b);
+    tma_load_chunks<NC>(sV[0], &tv, bar_kv[0], lo, hk, b);
   }
 
   // this thread's rows of the tile and its column pair in each 8-column block
   const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
   const int cpair = 2 * (lane & 3);
-  float o[32];
+  float o[NC][32];  // O, one m64n64 fragment per 64 columns of hd
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -410,23 +452,25 @@ __global__ void __launch_bounds__(kThreads)
     const int st = t & 1;
     __syncthreads();  // every warp is done with tile t - 1, in stage st ^ 1
     if (tid == 0 && t + 1 < n_tiles) {
-      mbar_expect_tx(bar_kv[st ^ 1], 2 * kTileBytes);
-      tma_load(sK[st ^ 1], &tk, bar_kv[st ^ 1], k0 + kBN, hk, b);
-      tma_load(sV[st ^ 1], &tv, bar_kv[st ^ 1], k0 + kBN, hk, b);
+      mbar_expect_tx(bar_kv[st ^ 1], 2 * kChunkBytes);
+      tma_load_chunks<NC>(sK[st ^ 1], &tk, bar_kv[st ^ 1], k0 + kBN, hk, b);
+      tma_load_chunks<NC>(sV[st ^ 1], &tv, bar_kv[st ^ 1], k0 + kBN, hk, b);
     }
     if (t == 0) mbar_wait(bar_q, 0);
     mbar_wait(bar_kv[st], (t >> 1) & 1);
 
-    // S = Q K^T: four k-steps of 16 over hd, 32 bytes apart in a swizzled row
+    // S = Q K^T: hd / 16 k-steps of 16 over hd, four to a chunk, 32 bytes
+    // apart in a swizzled row
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     fence_regs(s);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss(s, sw128_desc(sQ + 32 * kk, 16, 1024),
-               sw128_desc(sK[st] + 32 * kk, 16, 1024));
+    for (int kk = 0; kk < Bf16Cfg<HD>::kSteps; ++kk) {
+      const uint32_t off = (kk >> 2) * kTileBytes + 32 * (kk & 3);
+      wgmma_ss(s, sw128_desc(sQ + off, 16, 1024), sw128_desc(sK[st] + off, 16, 1024));
+    }
     wg_commit();
     wg_wait_all();
     fence_regs(s);
@@ -467,12 +511,14 @@ __global__ void __launch_bounds__(kThreads)
     l0 *= c0;
     l1 *= c1;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[4 * j + 0] *= c0;
-      o[4 * j + 1] *= c0;
-      o[4 * j + 2] *= c1;
-      o[4 * j + 3] *= c1;
-    }
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[c][4 * j + 0] *= c0;
+        o[c][4 * j + 1] *= c0;
+        o[c][4 * j + 2] *= c1;
+        o[c][4 * j + 3] *= c1;
+      }
     // P as the A fragments of four m64k16 steps over the keys: step kk
     // takes column blocks 2kk and 2kk + 1
     uint32_t ph[16], pl[16];
@@ -487,18 +533,25 @@ __global__ void __launch_bounds__(kThreads)
       split_pair(p10, p11, ph[r + 1], pl[r + 1]);
     }
 
-    // O += P_hi V + P_lo V: V is MN-major (hd contiguous), 16 keys per step
-    fence_regs(o);
+    // O += P_hi V + P_lo V: V is MN-major (hd contiguous), 16 keys per step,
+    // each 64-column chunk of V into its own fragment of O
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(o[c]);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv = sw128_desc(sV[st] + 2048 * kk, kTileBytes, 1024);
-      wgmma_rs(o, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], dv);
-      wgmma_rs(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], dv);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const uint64_t dv =
+            sw128_desc(sV[st] + c * kTileBytes + 2048 * kk, kTileBytes, 1024);
+        wgmma_rs(o[c], ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], dv);
+        wgmma_rs(o[c], pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], dv);
+      }
     }
     wg_commit();
     wg_wait_all();
-    fence_regs(o);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(o[c]);
   }
 
 #pragma unroll
@@ -510,15 +563,18 @@ __global__ void __launch_bounds__(kThreads)
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = 8 * j + cpair;
-    if (r0 < p.S)
-      *reinterpret_cast<uint32_t*>(O + r0 * p.o_ss + col) =
-          pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    if (r1 < p.S)
-      *reinterpret_cast<uint32_t*>(O + r1 * p.o_ss + col) =
-          pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-  }
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * c + 8 * j + cpair;
+      if (col >= HD) continue;  // hd 96's zero columns 96-127
+      if (r0 < p.S)
+        *reinterpret_cast<uint32_t*>(O + r0 * p.o_ss + col) =
+            pack_bf16(o[c][4 * j] * inv0, o[c][4 * j + 1] * inv0);
+      if (r1 < p.S)
+        *reinterpret_cast<uint32_t*>(O + r1 * p.o_ss + col) =
+            pack_bf16(o[c][4 * j + 2] * inv1, o[c][4 * j + 3] * inv1);
+    }
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime
@@ -542,9 +598,9 @@ EncodeTiled encode_tiled() {
 }
 
 // a 4-D (hd, S, H, B) bf16 map over a strided view, 64 x 64 boxes
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int S, int H,
-            int B, long long ss, long long sh, long long sb) {
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S),
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int hd, int S,
+            int H, int B, long long ss, long long sh, long long sb) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
@@ -558,16 +614,38 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int S, int H,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int HD>
 int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  constexpr uint32_t smem = Bf16Cfg<HD>::kSmem;
+  // the shared-memory opt-in, once per head dim and device (a host round
+  // trip; setting it twice in a race is harmless)
+  static bool opted_in[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[dev] = true;
+  }
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
-  if (!encode(fn, &tq, p.q, p.S, p.Hq, B, p.q_ss, p.q_sh, p.q_sb) ||
-      !encode(fn, &tk, p.k, p.S, p.Hkv, B, p.k_ss, p.k_sh, p.k_sb) ||
-      !encode(fn, &tv, p.v, p.S, p.Hkv, B, p.v_ss, p.v_sh, p.v_sb))
+  if (!encode(fn, &tq, p.q, HD, p.S, p.Hq, B, p.q_ss, p.q_sh, p.q_sb) ||
+      !encode(fn, &tk, p.k, HD, p.S, p.Hkv, B, p.k_ss, p.k_sh, p.k_sb) ||
+      !encode(fn, &tv, p.v, HD, p.S, p.Hkv, B, p.v_ss, p.v_sh, p.v_sb))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((p.S + kBM - 1) / kBM, p.Hq, B);
-  flash_fwd_bf16_kernel<<<grid, kThreads, kSmemBytes, stream>>>(tq, tk, tv, p);
+  flash_fwd_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, int BN>
+int launch_f32(const Params& p, int B, cudaStream_t stream) {
+  const dim3 grid((p.S + kBM - 1) / kBM, p.Hq, B);
+  flash_fwd_f32_kernel<HD, BN><<<grid, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -578,15 +656,16 @@ int launch_bf16(const Params& p, int B, cudaStream_t stream) {
 // strides (batch, head, seq) of q, k, v, o in that order; the head dim is
 // contiguous; rows start 4-element aligned (float32) or 8-element, 16-byte
 // aligned (bfloat16: TMA's rule).  kv_len is (B,) int32 with values in
-// [1, S], or null.  hd must be 64.  Returns cudaGetLastError() after the
-// launch (0 = launched), or the error that kept it from launching.
+// [1, S], or null.  hd must be 64, 96 or 128.  Returns cudaGetLastError()
+// after the launch (0 = launched), or the error that kept it from launching.
 extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
                                    const void* k, const void* v, void* o,
                                    const void* kv_len,
                                    const long long* strides, int B, int Hq,
                                    int Hkv, int S, int causal, int window,
                                    void* stream) {
-  if (head_dim != 64 || B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+  if ((head_dim != 64 && head_dim != 96 && head_dim != 128) || B <= 0 || S <= 0 ||
+      Hkv <= 0 || Hq % Hkv != 0 ||
       window < 0 || B > 65535 || Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
@@ -607,10 +686,14 @@ extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
   p.qk_scale = 1.4426950408889634f / sqrtf(static_cast<float>(head_dim));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const dim3 grid((S + kBM - 1) / kBM, Hq, B);
-    flash_fwd_f32_kernel<64><<<grid, kThreads, 0, s>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    if (head_dim == 64) return launch_f32<64, 64>(p, B, s);
+    if (head_dim == 96) return launch_f32<96, 32>(p, B, s);
+    return launch_f32<128, 32>(p, B, s);
   }
-  if (dtype == 1) return launch_bf16(p, B, s);
+  if (dtype == 1) {
+    if (head_dim == 64) return launch_bf16<64>(p, B, s);
+    if (head_dim == 96) return launch_bf16<96>(p, B, s);
+    return launch_bf16<128>(p, B, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

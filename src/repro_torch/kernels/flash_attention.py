@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64,)            # head dims the CUDA kernel is built for
+HEAD_DIMS = (64, 96, 128)    # head dims the CUDA kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the CUDA kernel (never the plain version)
@@ -78,10 +78,10 @@ def _lib():
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, kv_len=None):
     """Launch ``csrc/flash_attention.cu``.  q (B, Hq, S, hd), k and v
     (B, Hkv, S, hd) of one dtype (float32 or bfloat16) on one CUDA
-    device, hd 64, Hq a multiple of Hkv, the head dim contiguous (other
-    strides and the base aligned to 4 elements in float32, 8 in
-    bfloat16, so transposed views of (B, S, H, hd) tensors go in as
-    they are); kv_len an optional (B,) int32 tensor with values in
+    device, hd 64, 96 or 128, Hq a multiple of Hkv, the head dim
+    contiguous (other strides and the base aligned to 4 elements in
+    float32, 8 in bfloat16, so transposed views of (B, S, H, hd)
+    tensors go in as they are); kv_len an optional (B,) int32 tensor with values in
     [1, S].  Returns a (B, Hq, S, hd) view of a (B, S, Hq, hd) buffer,
     so that transposing it back to the model's layout is free."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:

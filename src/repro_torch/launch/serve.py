@@ -8,8 +8,9 @@ layer of every token, so ``--fold-mask`` folds the selected client's
 binary mask into the server weights ONCE and then serves plain steps.
 
 Usage (on the CUDA card by default; ``--device cpu`` runs the plain
-kernel versions):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+kernel versions; ``--arch`` one of ``configs.base.list_archs()``:
+granite-3-8b, olmo-1b, phi3-mini-3.8b, qwen2-0.5b):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
       --prompt-len 512 --gen 32 --batch 8 --fold-mask
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import get_config, list_archs
 from repro_torch.core import masks as masks_mod
 from repro_torch.launch.steps import init_serve_params
 from repro_torch.models import decode as dec
@@ -58,7 +59,7 @@ def random_masks(cfg, n_clients: int, seed: int = 1, device="cuda"):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

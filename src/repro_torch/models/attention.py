@@ -6,11 +6,16 @@ Every full-sequence self-attention goes through
 ``kernels.flash_attention`` (the CUDA kernel on the card), ragged
 batches included: where the reference masks keys with ``kv_valid`` and
 leaves its flash path for the einsum one, the port passes the prefix
-length ``kv_len`` to the kernel.  Decode attention is ``mha_einsum`` in
-plain torch ops, as in the reference (one query row per step).
+length ``kv_len`` to the kernel.  Where the reference takes
+``mha_chunked`` (S > 2048, S % 256 == 0, no key mask), the port rounds
+q, k and v to bf16 as it does, and runs ``mha_chunked`` on the CPU and
+the bf16 flash kernel on the card (``chunked_attention``).  Decode
+attention is ``mha_einsum`` in plain torch ops, as in the reference (one
+query row per step).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -21,13 +26,13 @@ from repro_torch.models.layers import apply_rope, dense_init
 NEG_INF = -1e30
 
 
-def attention_init(gen, cfg, lead=()):
+def attention_init(gen, cfg, lead=(), cast=None):
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": dense_init(gen, d, hq * hd, lead=lead),
-        "wk": dense_init(gen, d, hkv * hd, lead=lead),
-        "wv": dense_init(gen, d, hkv * hd, lead=lead),
-        "wo": dense_init(gen, hq * hd, d, lead=lead),
+        "wq": dense_init(gen, d, hq * hd, lead=lead, cast=cast),
+        "wk": dense_init(gen, d, hkv * hd, lead=lead, cast=cast),
+        "wv": dense_init(gen, d, hkv * hd, lead=lead, cast=cast),
+        "wo": dense_init(gen, hq * hd, d, lead=lead, cast=cast),
     }
     if cfg.qkv_bias:
         for name, n in (("bq", hq), ("bk", hkv), ("bv", hkv)):
@@ -88,6 +93,80 @@ def mha_einsum(q, k, v, *, causal: bool, window: int = 0,
     return torch.einsum("bhqk,bkhd->bqhd", w, vf).to(q.dtype)
 
 
+def mha_chunked(q, k, v, *, causal: bool, window: int = 0,
+                q_chunk: int = 1024, kv_chunk: int = 1024):
+    """The reference's online-softmax attention over (q_chunk, kv_chunk)
+    blocks: q, k and v rounded to bf16, their dots summed in float32,
+    P rounded to bf16 before the value product, float32 running max,
+    sum and accumulator; the output cast back to q's dtype.
+
+    q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd); each S a multiple of
+    its chunk (the reference's assertion)."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Skv)
+    if Sq % q_chunk or Skv % kv_chunk:
+        raise ValueError(f"S {Sq}/{Skv} not a multiple of the chunks "
+                         f"{q_chunk}/{kv_chunk}")
+    f32, bf16 = torch.float32, torch.bfloat16
+    # bf16 inputs, f32 products and sums (exact products of bf16 values)
+    qf = q.to(bf16).to(f32)
+    kf = k.to(bf16).to(f32).repeat_interleave(G, dim=2)
+    vf = v.to(bf16).to(f32).repeat_interleave(G, dim=2)
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        qblk = qf[:, q0:q0 + q_chunk]
+        qpos = q0 + torch.arange(q_chunk, device=q.device)
+        m = torch.full((B, Hq, q_chunk), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((B, Hq, q_chunk), dtype=f32, device=q.device)
+        acc = torch.zeros((B, Hq, q_chunk, hd), dtype=f32, device=q.device)
+        for k0 in range(0, Skv, kv_chunk):
+            kpos = k0 + torch.arange(kv_chunk, device=q.device)
+            s = torch.einsum("bqhd,bkhd->bhqk", qblk,
+                             kf[:, k0:k0 + kv_chunk]) * scale
+            msk = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                             device=q.device)
+            if causal:
+                msk &= kpos[None, :] <= qpos[:, None]
+            if window:
+                msk &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(bf16).to(f32),
+                vf[:, k0:k0 + kv_chunk])
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0):
+    """The reference's long-sequence attention on (B, S, H, hd) q, k, v:
+    the inputs rounded to bf16, the output cast back to q's dtype.  On
+    CPU tensors ``mha_chunked`` in blocks of gcd(S, 1024): the
+    reference's 1024 where that divides S (elsewhere the reference's
+    own chunk assertion fails; the port takes the largest block of at
+    most 1024 that divides S).  On CUDA tensors the bf16 flash kernel
+    on the rounded inputs (its P kept to ~16 bits, where
+    ``mha_chunked`` rounds P to 8)."""
+    if q.device.type == "cpu":
+        chunk = math.gcd(q.shape[1], 1024)
+        return mha_chunked(q, k, v, causal=causal, window=window,
+                           q_chunk=chunk, kv_chunk=chunk)
+    bf16 = torch.bfloat16
+    out = flash_attention(q.to(bf16).transpose(1, 2),
+                          k.to(bf16).transpose(1, 2),
+                          v.to(bf16).transpose(1, 2), causal=causal,
+                          window=window)
+    return out.transpose(1, 2).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Layer-level entry points
 # ---------------------------------------------------------------------------
@@ -109,7 +188,9 @@ def attn_forward(p, x, cfg, *, positions, causal=True, window=0,
 
     kv_len: optional (B,) int32 count of each row's valid keys for
     right-padded ragged batches — keys past it contribute nothing to
-    any query (the reference's prefix ``kv_valid`` mask).
+    any query (the reference's prefix ``kv_valid`` mask).  Without it,
+    above S = 2048 (S % 256 == 0) the attention is the reference's
+    ``mha_chunked`` (``chunked_attention``).
     head_gate: AdaSplit structured mask, (H,) or (B, H), gating each
     head's output before the wo projection.
     Returns (out, (k, v)) so prefill can stash the cache."""
@@ -117,9 +198,13 @@ def attn_forward(p, x, cfg, *, positions, causal=True, window=0,
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, dtype)
     q, k = _rope_qk(q, k, cfg, positions)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, window=window,
-                          kv_len=kv_len).transpose(1, 2)
+    if S > 2048 and S % 256 == 0 and kv_len is None:
+        # where the reference's attn_forward takes mha_chunked
+        out = chunked_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=window, kv_len=kv_len).transpose(1, 2)
     out = _head_gate(out, head_gate, dtype)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"].to(dtype), (k, v)

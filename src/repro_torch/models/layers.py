@@ -18,11 +18,15 @@ def _normal(gen, shape):
                        dtype=torch.float32)
 
 
-def dense_init(gen, d_in, d_out, scale=None, lead=()):
+def dense_init(gen, d_in, d_out, scale=None, lead=(), cast=None):
     """(*lead, d_in, d_out) float32 weights, N(0, 1/d_in) by default;
-    ``lead`` stacks independent draws (the segments' n_rep axis)."""
+    ``lead`` stacks independent draws (the segments' n_rep axis);
+    ``cast``, where given, is applied to the draw at once (a serving
+    init keeps only the cast copy of each weight, never the whole
+    float32 model beside it)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return _normal(gen, tuple(lead) + (d_in, d_out)) * scale
+    w = _normal(gen, tuple(lead) + (d_in, d_out)).mul_(scale)
+    return w if cast is None else cast(w)
 
 
 # ---------------------------------------------------------------------------
@@ -84,8 +88,9 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def embedding_init(gen, vocab_padded, d_model):
-    return {"table": _normal(gen, (vocab_padded, d_model)) * 0.02}
+def embedding_init(gen, vocab_padded, d_model, cast=None):
+    w = _normal(gen, (vocab_padded, d_model)).mul_(0.02)
+    return {"table": w if cast is None else cast(w)}
 
 
 def embed(params, tokens, dtype):

@@ -6,11 +6,11 @@ import torch.nn.functional as F
 from repro_torch.models.layers import dense_init
 
 
-def mlp_init(gen, d_model, d_ff, lead=()):
+def mlp_init(gen, d_model, d_ff, lead=(), cast=None):
     return {
-        "w_gate": dense_init(gen, d_model, d_ff, lead=lead),
-        "w_up": dense_init(gen, d_model, d_ff, lead=lead),
-        "w_down": dense_init(gen, d_ff, d_model, lead=lead),
+        "w_gate": dense_init(gen, d_model, d_ff, lead=lead, cast=cast),
+        "w_up": dense_init(gen, d_model, d_ff, lead=lead, cast=cast),
+        "w_down": dense_init(gen, d_ff, d_model, lead=lead, cast=cast),
     }
 
 

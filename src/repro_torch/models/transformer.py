@@ -107,22 +107,24 @@ def _check_layer(desc: LayerDesc):
         _later("moe")
 
 
-def _layer_init(gen, cfg: ModelConfig, desc: LayerDesc, n_rep: int):
-    """One body position's params, stacked over ``n_rep``."""
+def _layer_init(gen, cfg: ModelConfig, desc: LayerDesc, n_rep: int,
+                cast=None):
+    """One body position's params, stacked over ``n_rep``; ``cast``, where
+    given, applied to each weight as it is drawn."""
     _check_layer(desc)
     lead = (n_rep,)
     p: Dict[str, Any] = {"norm1": norm_init(cfg.d_model, cfg.norm, lead,
                                             gen.device),
-                         "mixer": attn.attention_init(gen, cfg, lead)}
+                         "mixer": attn.attention_init(gen, cfg, lead, cast)}
     if desc.ffn == "dense":
         p["norm2"] = norm_init(cfg.d_model, cfg.norm, lead, gen.device)
-        p["ffn"] = mlp_mod.mlp_init(gen, cfg.d_model, cfg.d_ff, lead)
+        p["ffn"] = mlp_mod.mlp_init(gen, cfg.d_model, cfg.d_ff, lead, cast)
     return p
 
 
-def segment_init(gen, cfg: ModelConfig, seg: Segment):
+def segment_init(gen, cfg: ModelConfig, seg: Segment, cast=None):
     """Params of one segment: a list over the body, leaves (n_rep, ...)."""
-    return [_layer_init(gen, cfg, d, seg.n_rep) for d in seg.body]
+    return [_layer_init(gen, cfg, d, seg.n_rep, cast) for d in seg.body]
 
 
 # ---------------------------------------------------------------------------
@@ -253,23 +255,26 @@ def model_plan(cfg: ModelConfig):
             "server_segments": build_segments(cfg, s, cfg.n_layers)}
 
 
-def init_client_params(cfg: ModelConfig, gen):
+def init_client_params(cfg: ModelConfig, gen, cast=None):
+    """``cast``: optional, applied to each weight as it is drawn."""
     plan = model_plan(cfg)
-    return {"embed": embedding_init(gen, cfg.padded_vocab(), cfg.d_model),
-            "segments": [segment_init(gen, cfg, s)
+    return {"embed": embedding_init(gen, cfg.padded_vocab(), cfg.d_model,
+                                    cast),
+            "segments": [segment_init(gen, cfg, s, cast)
                          for s in plan["client_segments"]]}
 
 
-def init_server_params(cfg: ModelConfig, gen):
+def init_server_params(cfg: ModelConfig, gen, cast=None):
+    """``cast``: optional, applied to each weight as it is drawn."""
     plan = model_plan(cfg)
     p: Dict[str, Any] = {
         "final_norm": norm_init(cfg.d_model, cfg.norm, device=gen.device),
-        "segments": [segment_init(gen, cfg, s)
+        "segments": [segment_init(gen, cfg, s, cast)
                      for s in plan["server_segments"]]}
     # The LM head is ALWAYS server-owned: `tie_embeddings` is model-card
     # metadata, and tying across the split would leak server weights to
     # clients.
-    p["lm_head"] = embedding_init(gen, cfg.padded_vocab(), cfg.d_model)
+    p["lm_head"] = embedding_init(gen, cfg.padded_vocab(), cfg.d_model, cast)
     return p
 
 

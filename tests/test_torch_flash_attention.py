@@ -9,7 +9,12 @@ outputs of order 1).  In bfloat16 the plain version and ``mha_einsum``
 both compute in float32 and round the output once, so they may differ
 by one bfloat16 step (2**-7 relative); the Pallas kernel also rounds its
 probabilities to bfloat16 before the value product, which moves outputs
-by up to ~1e-2."""
+by up to ~1e-2.
+
+Every case runs at head dim 64 (qwen2-0.5b) and, in the ``*_head_dims``
+tests, at 96 (phi3-mini-3.8b) and 128 (olmo-1b, granite-3-8b), at the
+same tolerances: the plain version has no head-dim limit, and its
+scores divide by sqrt(hd) as the reference's do."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,24 +46,44 @@ def _np(x):
     return np.asarray(x.astype(jnp.float32))
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,S,block", [(2, 14, 2, 64, 32),
-                                              (1, 4, 4, 48, 16)],
-                         ids=["gqa7", "mha"])
-@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
-                                           (True, 24)],
-                         ids=["causal", "full", "window"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_plain_matches_pallas_interpret(B, Hq, Hkv, S, block, causal, window,
-                                        dtype):
-    q, k, v = _qkv(B, Hq, Hkv, S, seed=S + Hq)
+PALLAS_SHAPES = pytest.mark.parametrize(
+    "B,Hq,Hkv,S,block", [(2, 14, 2, 64, 32), (1, 4, 4, 48, 16)],
+    ids=["gqa7", "mha"])
+PALLAS_MASKS = pytest.mark.parametrize(
+    "causal,window", [(True, 0), (False, 0), (True, 24)],
+    ids=["causal", "full", "window"])
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["f32", "bf16"])
+WIDE_HEAD_DIMS = pytest.mark.parametrize("hd", [96, 128],
+                                         ids=["hd96", "hd128"])
+
+
+def _plain_vs_pallas(B, Hq, Hkv, S, block, causal, window, dtype, hd):
+    q, k, v = _qkv(B, Hq, Hkv, S, hd, seed=S + Hq)
     (jq, tq), (jk, tk), (jv, tv) = (_to(a, dtype) for a in (q, k, v))
     want = jfa.flash_attention(jq, jk, jv, causal=causal, window=window,
                                block_q=block, block_k=block, interpret=True)
     got = tfa.flash_attention(tq, tk, tv, causal=causal, window=window)
-    assert got.dtype == dtype and got.shape == (B, Hq, S, 64)
+    assert got.dtype == dtype and got.shape == (B, Hq, S, hd)
     atol = F32_ATOL if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=atol)
+
+
+@PALLAS_SHAPES
+@PALLAS_MASKS
+@DTYPES
+def test_plain_matches_pallas_interpret(B, Hq, Hkv, S, block, causal, window,
+                                        dtype):
+    _plain_vs_pallas(B, Hq, Hkv, S, block, causal, window, dtype, 64)
+
+
+@WIDE_HEAD_DIMS
+@PALLAS_SHAPES
+@PALLAS_MASKS
+@DTYPES
+def test_plain_matches_pallas_interpret_head_dims(B, Hq, Hkv, S, block,
+                                                  causal, window, dtype, hd):
+    _plain_vs_pallas(B, Hq, Hkv, S, block, causal, window, dtype, hd)
 
 
 def _einsum_ref(q, k, v, *, causal, window, kv_len, jdtype):
@@ -73,21 +98,37 @@ def _einsum_ref(q, k, v, *, causal, window, kv_len, jdtype):
     return np.asarray(out.astype(jnp.float32)).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,S", [(3, 14, 2, 50), (2, 4, 4, 77),
-                                        (1, 14, 2, 1)],
-                         ids=["gqa7-S50", "mha-S77", "S1"])
-@pytest.mark.parametrize("causal,window,ragged", [
+EINSUM_SHAPES = pytest.mark.parametrize(
+    "B,Hq,Hkv,S", [(3, 14, 2, 50), (2, 4, 4, 77), (1, 14, 2, 1)],
+    ids=["gqa7-S50", "mha-S77", "S1"])
+EINSUM_MASKS = pytest.mark.parametrize("causal,window,ragged", [
     (True, 0, False), (True, 0, True), (False, 0, True), (True, 7, False),
     (False, 9, False)],
     ids=["causal", "causal-ragged", "full-ragged", "window", "full-window"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+
+
+@EINSUM_SHAPES
+@EINSUM_MASKS
+@DTYPES
 def test_plain_matches_mha_einsum(B, Hq, Hkv, S, causal, window, ragged,
                                   dtype):
     """Ragged S (no tile divides it) and right-padded rows: kv_len =
     last_index + 1 reproduces mha_einsum with the prefix kv_valid mask,
     pad query rows included."""
-    q, k, v = _qkv(B, Hq, Hkv, S, seed=S)
+    _plain_vs_einsum(B, Hq, Hkv, S, causal, window, ragged, dtype, 64)
+
+
+@WIDE_HEAD_DIMS
+@EINSUM_SHAPES
+@EINSUM_MASKS
+@DTYPES
+def test_plain_matches_mha_einsum_head_dims(B, Hq, Hkv, S, causal, window,
+                                            ragged, dtype, hd):
+    _plain_vs_einsum(B, Hq, Hkv, S, causal, window, ragged, dtype, hd)
+
+
+def _plain_vs_einsum(B, Hq, Hkv, S, causal, window, ragged, dtype, hd):
+    q, k, v = _qkv(B, Hq, Hkv, S, hd, seed=S)
     kv_len = np.random.default_rng(S).integers(1, S + 1, B).astype(
         np.int32) if ragged else None
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32

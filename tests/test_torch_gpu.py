@@ -200,6 +200,54 @@ def test_flash_attention_matches_plain(cuda, B, Hq, Hkv, S, dtype, causal,
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("hd", [96, 128], ids=["hd96", "hd128"])
+@pytest.mark.parametrize("B,Hq,Hkv,S", [(2, 32, 8, 512), (3, 4, 4, 77),
+                                       (1, 32, 32, 1), (4, 16, 16, 333)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,window,ragged", [
+    (True, 0, False), (True, 0, True), (False, 0, True), (True, 48, True)],
+    ids=["causal", "causal-ragged", "full-ragged", "window-ragged"])
+def test_flash_attention_head_dims_match_plain(cuda, hd, B, Hq, Hkv, S, dtype,
+                                               causal, window, ragged):
+    """hd 96 (phi3-mini: two 64-column chunks, the second half zeros from
+    the tensor map's edge) and 128 (granite, olmo) against the plain
+    version, at the same tolerances as hd 64."""
+    gen = torch.Generator(device=cuda).manual_seed(S + hd)
+    q, k, v = (torch.randn((B, S, h, hd), device=cuda, generator=gen)
+               .to(dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+    kv_len = torch.randint(1, S + 1, (B,), device=cuda, generator=gen,
+                           dtype=torch.int32) if ragged else None
+    before = tfa.LAUNCHES["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                              kv_len=kv_len)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == (B, Hq, S, hd) and got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def test_chunked_attention_on_card_matches_cpu(cuda):
+    """Above S = 2048 (granite's hd 128, GQA 4/2, f32 inputs): the card
+    runs the bf16 flash kernel on the bf16-rounded q, k, v, the CPU the
+    reference's ``mha_chunked``; they differ in P's rounding (16 bits
+    against 8) and the output's (bf16 against f32), so 2e-2 as bf16."""
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((1, 2304, h, 128), device=cuda, generator=gen)
+               for h in (4, 2, 2))
+    before = tfa.LAUNCHES["flash_attention"]
+    got = attn.chunked_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    want = attn.chunked_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-2)
+
+
 def test_flash_attention_refuses_what_it_cannot_take(cuda):
     q = torch.zeros((1, 2, 8, 32), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
