@@ -11,38 +11,67 @@ time:
    kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
 2. LeNet kernels: each at the shapes phase 4's runs give it (derived
    from their hparams: C=32 clients, B=32, S=19 selected, projection
-   width 64) against its plain PyTorch version on the card, with its
-   device time (torch.profiler), the plain version's, that of one
-   PyTorch library call where one computes the same function, and the
-   bound (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s fp32): the panel
-   GEMMs (each with the tile and K splits it ran, two launches
-   bit-equal, ``torch.bmm`` beside it, and the host time per call of
-   the wrapper and of ``torch.bmm``), the multi-tensor Adam kernel as
-   the global step launches it (server and mask leaves, one launch each)
-   and as the client step does (all clients' leaves, one launch, the
-   client order), each bit-equal to its plain version and timed against
-   one ``torch._fused_adam_`` call over the same leaves, the fused
-   NT-Xent forward and backward (and the loss's gradient through them
-   against the CPU's autograd path) and soft-threshold (1024x1024 in
-   float32 and bfloat16, and phase 4's split activations).  Each
-   profile starts with marker kernels that take the profiler's loss of a
-   session's first device records; one that lost more is taken again
-   with more markers, and after three the time comes from CUDA events
-   around the same loop, and the output says so;
+   width 64; the streamed runs' client steps at their chunks' 8 and 12
+   rows), at phase 4b's (C=256, and a 32-row chunk: the GEMMs, NT-Xent
+   and client Adam over 256 rows, masked Adam over the server and S=154
+   mask rows), and the GEMMs at the main run's shapes with the split
+   after conv block 2 and 4, against its plain PyTorch version on the
+   card, with its device time (torch.profiler), the plain version's,
+   that of one PyTorch library call where one computes the same
+   function, and the bound (bytes over 3.35 TB/s or FLOPs over 67
+   TFLOP/s fp32): the panel GEMMs (each with the tile and K splits it
+   ran, two launches bit-equal, ``torch.bmm`` beside it, and the host
+   time per call of the wrapper and of ``torch.bmm``), the multi-tensor
+   Adam kernel as the global step launches it (server and mask leaves,
+   one launch each) and as the client step does (all clients' leaves,
+   one launch, the client order), each bit-equal to its plain version
+   and timed against one ``torch._fused_adam_`` call over the same
+   leaves, the fused NT-Xent forward and backward (and the loss's
+   gradient through them against the CPU's autograd path) and
+   soft-threshold (1024x1024 in float32 and bfloat16, and phase 4's
+   split activations).  Each profile starts with marker kernels that
+   take the profiler's loss of a session's first device records; one
+   that lost more is taken again with more markers, and after three the
+   time comes from CUDA events around the same loop, and the output says
+   so;
 3. one teacher-forced LeNet iteration, and one global round on the
    round rung, from the same state on the card and on the CPU, compared;
-4. ``AdaSplitTrainer`` on ``lenet-cifar`` at full width (C=32, B=32,
-   4 rounds) on the round rung (the default), with every kernel's launch
+4. ``AdaSplitTrainer`` on ``lenet-cifar`` at full width (C=32, B=32, 4
+   rounds) on the round rung (the default), with every kernel's launch
    count from that run; the same hparams on the eager and the epoch
    rungs, which must select and bill alike; a shorter run with
    ``fused_epilogue=True`` and per-scalar masks drives the bias+ReLU
-   epilogue kernel.  Each run's global-iteration wall time, the runs
-   timed in turn.  One global and one local round, and one global and
-   one local epoch, run under ``torch.cuda.set_sync_debug_mode("error")``
-   with the mode lifted only around the trainer's one fetch, so that any
-   other host sync fails the run.  Then the port's kernel API
-   (``kernels/ops.py``, the path of soft-threshold) on the main run's
-   own tensors;
+   epilogue kernel.  Streamed residency (``streamed=True``): the main
+   run in 4 chunks of 8 clients, the epoch run likewise, and the fused
+   per-scalar run on the disk store (chunks of 12, 12 and 8, under
+   ``build/``, removed after) must each select and bill as its resident
+   twin (the store's traffic on ``host_device_bytes`` besides) and end
+   within the Adam sign-flip bound of its state; two witnesses, one
+   chunk of all 32 rows and the 8-row chunks on the eager rung (no
+   ring), must end bit-equal to main and to the 8-row run (every pair of
+   runs whose client steps take the same rows must);
+   ``batched_conv=False`` (2 rounds) must launch no panel GEMM and bill
+   per round as the main run;
+   ``fused_mask_adam=fused_server_adam=False`` (2 rounds) moves the
+   global step's two masked-Adam launches to the client order.  Every
+   run's launches are derived from its hparams (the client step's once
+   per chunk, streamed).  Each run's global-iteration wall time, the
+   runs timed in turn.  One global and one local round, and one global
+   and one local epoch, run under ``torch.cuda.set_sync_debug_mode(
+   "error")`` with the mode lifted only around the trainer's one fetch,
+   so that any other host sync fails the run; one global and one local
+   streamed round on the round and on the eager rung run under
+   ``"warn"`` with every warning counted, and the count must be the
+   formula of ``_stream_one_round``'s docstring. Then the port's kernel
+   API (``kernels/ops.py``, the path of soft-threshold) on the main
+   run's own tensors;
+4b. a population of 256 clients at full width (``mixed_noniid(256, 128,
+   64)``, one local and one global round), resident on the round rung
+   and streamed in chunks of 32: each one's iteration wall ms, peak
+   device memory and memory held between the rounds, and its launches,
+   which must be as derived from its hparams; the streamed run must hold
+   at least C x a client's store row less and peak lower, select and
+   bill alike and end within phase 4's streamed state bound;
 5. the flash-attention kernel at every prefill shape of phase 7's
    serving runs (derived from ``serving_runs()`` through the engines'
    own batching and bucketing; bf16, causal, kv_len where ragged; each
@@ -99,6 +128,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -140,18 +170,26 @@ def trainer_runs():
     Table-5 ablation) on the three rungs, and on a shorter per-scalar
     run with the fused epilogue (the per-client form); serialized server
     updates on the round rung, and the per-client loop
-    (``global_batch=False``, the eager rung).  Phase 2 checks every
-    kernel at the shapes these runs give it."""
+    (``global_batch=False``, the eager rung); streamed residency
+    (``streamed=True``) on the round rung (4 chunks of 8 clients), the
+    epoch rung, and the per-scalar fused run on the disk store (chunks
+    of 12, 12 and 8), and two witnesses (one chunk of 32 rows; the 8-row
+    chunks on the eager rung, without the ring); the library conv
+    (``batched_conv=False``) and ``adam_update``'s order for the server
+    and the masks (``fused_*_adam=False``).  Phase 2 checks every kernel
+    at the shapes these runs give it."""
     import dataclasses
     from repro_torch.core.adasplit import AdaSplitHParams
     main = AdaSplitHParams(rounds=4, kappa=0.5, eta=0.6, batch_size=32)
     joint = dataclasses.replace(main, server_grad_to_client=True)
+    epoch = dataclasses.replace(main, epoch_scan=True, epoch_chunk_rounds=1)
+    fused = dataclasses.replace(main, rounds=2, mask_mode="per_scalar",
+                                fused_epilogue=True)
+    stream = dataclasses.replace(main, streamed=True, stream_chunk=8)
     return {"main": main,
             "eager": dataclasses.replace(main, round_scan=False),
-            "epoch": dataclasses.replace(main, epoch_scan=True,
-                                         epoch_chunk_rounds=1),
-            "fused_epilogue+per_scalar": dataclasses.replace(
-                main, rounds=2, mask_mode="per_scalar", fused_epilogue=True),
+            "epoch": epoch,
+            "fused_epilogue+per_scalar": fused,
             "joint": joint,
             "joint_eager": dataclasses.replace(joint, round_scan=False),
             "joint_epoch": dataclasses.replace(joint, epoch_scan=True,
@@ -163,13 +201,41 @@ def trainer_runs():
             # iteration make ~11,000 device ops
             "serialized": dataclasses.replace(
                 main, rounds=2, serialize_server_updates=True),
-            "loop": dataclasses.replace(main, rounds=2, global_batch=False)}
+            "loop": dataclasses.replace(main, rounds=2, global_batch=False),
+            "stream": stream,
+            # witnesses: one chunk of all 32 rows (the resident step's
+            # shapes, no second chunk on the ring) and the 8-row chunks
+            # without the ring (eager rung): each must equal its twin
+            # bit for bit
+            "stream_whole": dataclasses.replace(stream,
+                                                stream_chunk=N_CLIENTS),
+            "stream_eager": dataclasses.replace(stream, round_scan=False),
+            "stream_epoch": dataclasses.replace(epoch, streamed=True,
+                                                stream_chunk=8),
+            "stream_disk": dataclasses.replace(
+                fused, streamed=True, store_backend="disk", stream_chunk=12,
+                store_dir=str(STORE_DIR)),
+            "conv_ref": dataclasses.replace(main, rounds=2,
+                                            batched_conv=False),
+            "adam_unfused": dataclasses.replace(
+                main, rounds=2, fused_mask_adam=False,
+                fused_server_adam=False)}
 
 
-# runs that must select and bill as another run does: (run, reference)
+# runs that must select and bill as another run does: (run, reference);
+# a streamed run against a resident one bills the store's traffic on
+# host_device_bytes besides
 SAME_SELECTIONS = (("eager", "main"), ("epoch", "main"),
                    ("joint_eager", "joint"), ("joint_epoch", "joint"),
-                   ("loop", "serialized"))
+                   ("loop", "serialized"), ("stream", "main"),
+                   ("stream_epoch", "epoch"),
+                   ("stream_disk", "fused_epilogue+per_scalar"),
+                   ("stream_whole", "main"), ("stream_eager", "stream"))
+# the disk store's directory (removed after phase 4)
+STORE_DIR = ROOT / "build" / "client_store"
+# phase 4b: a population whose client state outgrows a chunk many times
+POPULATION = {"clients": 256, "n_per_client": 128, "n_test": 64,
+              "stream_chunk": 32}
 
 
 def rung(hp) -> str:
@@ -339,19 +405,40 @@ def per_client_global(hp) -> bool:
     return hp.serialize_server_updates or not hp.global_batch
 
 
-def gemm_shapes(cfg, hp):
-    """(name, C, M, K, N, launches) of every conv GEMM shape that one
-    global iteration of the trainer run with ``hp`` launches, and how
-    often: the client blocks over all N_CLIENTS clients; then the global
-    step's over the S selected ones -- the joint step's client blocks
-    stacked over S, the server blocks as one flattened S*B batch
-    (per_unit, either joint form) or stacked over S (per_scalar); one
-    client at a time (C=1, B rows) S times when serialized or looped."""
+def chunk_rows(hp, n_clients=None):
+    """Client rows of each client-step launch of one iteration: all the
+    clients at once, or each ``stream_chunk`` rows of a streamed run (the
+    trainer's ``_stream_chunk``)."""
+    n_clients = n_clients or N_CLIENTS
+    if not hp.streamed:
+        return [n_clients]
     from repro_torch.core.orchestrator import n_selected
-    S, B = n_selected(N_CLIENTS, hp.eta), hp.batch_size
+    chunk = min(n_clients, hp.stream_chunk
+                or max(32, n_selected(n_clients, hp.eta)))
+    return [min(chunk, n_clients - i0) for i0 in range(0, n_clients, chunk)]
+
+
+def gemm_shapes(cfg, hp, n_clients=None):
+    """(name, C, M, K, N, launches) of every conv GEMM shape that one
+    global iteration of the trainer run with ``hp`` on ``n_clients``
+    clients launches, and how often: the client blocks over all the
+    clients (over each chunk's rows, streamed); then the global step's
+    over the S selected ones -- the joint step's client blocks stacked
+    over S, the server blocks as one flattened S*B batch (per_unit,
+    either joint form) or stacked over S (per_scalar); one client at a
+    time (C=1, B rows) S times when serialized or looped.  None under
+    ``batched_conv=False`` (every conv the library's)."""
+    from collections import Counter
+    from repro_torch.core.orchestrator import n_selected
+    if not hp.batched_conv:
+        return []
+    n_clients = n_clients or N_CLIENTS
+    S, B = n_selected(n_clients, hp.eta), hp.batch_size
     client, server = conv_blocks(cfg)
     joint = hp.server_grad_to_client
-    out = [(f"client_block{i + 1}", N_CLIENTS, B * hw * hw, kd, cout, 1)
+    out = [(f"client_block{i + 1}", m, B * hw * hw, kd, cout, k)
+           for m, k in sorted(Counter(chunk_rows(hp, n_clients)).items(),
+                              reverse=True)
            for i, (kd, cout, hw) in enumerate(client)]
     if per_client_global(hp):
         out += [(f"joint_client_block{i + 1}", 1, B * hw * hw, kd, cout, S)
@@ -367,29 +454,36 @@ def gemm_shapes(cfg, hp):
     return out
 
 
-def iteration_launches(cfg, hp, global_phase=True):
+def iteration_launches(cfg, hp, global_phase=True, n_clients=None):
     """Kernel launches of one iteration of the run with ``hp``, derived
     from its hparams: the client step's (its GEMMs, one client Adam, one
-    NT-Xent forward and backward); in the global phase the global
-    step's too.  Batched, the server and the masks take masked Adam
-    once each, and the joint step adds one client Adam over the S rows
-    and one NT-Xent forward and backward; one client at a time, each
-    selected client's step takes masked Adam for the server and client
-    Adam for its mask, and the joint step adds one client Adam and one
-    NT-Xent forward and backward each."""
+    NT-Xent forward and backward; once per chunk, streamed); in the
+    global phase the global step's too.  Batched, the server and the
+    masks take masked Adam once each (client Adam's order, each that
+    ``fused_server_adam`` / ``fused_mask_adam`` sets False), and the
+    joint step adds one client Adam over the S rows and one NT-Xent
+    forward and backward; one client at a time, each selected client's
+    step takes masked Adam for the server and client Adam for its mask,
+    and the joint step adds one client Adam and one NT-Xent forward and
+    backward each."""
     from repro_torch.core.orchestrator import n_selected
-    S = n_selected(N_CLIENTS, hp.eta)
-    shapes = gemm_shapes(cfg, hp)
+    n_clients = n_clients or N_CLIENTS
+    S = n_selected(n_clients, hp.eta)
+    chunks = len(chunk_rows(hp, n_clients))
+    shapes = gemm_shapes(cfg, hp, n_clients)
     if not global_phase:
         shapes = [s for s in shapes if s[0].startswith("client_block")]
     joint = hp.server_grad_to_client and global_phase
+    server = hp.fused_server_adam is not False
     if not global_phase:
-        masked, client, nt = 0, 1, 1
+        masked, client, nt = 0, chunks, chunks
     elif per_client_global(hp):
-        masked, client, nt = S, 1 + S * (2 if joint else 1), \
-            1 + (S if joint else 0)
+        masked, client, nt = S * server, 1 + S * (2 if joint else 1) \
+            + S * (not server), 1 + (S if joint else 0)
     else:
-        masked, client, nt = 2, 1 + joint, 1 + joint
+        fused = server + (hp.fused_mask_adam is not False)
+        masked, client, nt = fused, chunks + joint + 2 - fused, \
+            chunks + joint
     gemm = "panel_gemm_bias_relu" if hp.fused_epilogue else "panel_gemm"
     other = "panel_gemm" if hp.fused_epilogue else "panel_gemm_bias_relu"
     return {gemm: sum(s[-1] for s in shapes), other: 0,
@@ -466,18 +560,19 @@ def check_gemm(cfg, hp, gen, shapes=None, run=""):
     return tot
 
 
-def adam_leaves(cfg, hp):
+def adam_leaves(cfg, hp, n_clients=N_CLIENTS):
     """(server leaf shapes, mask leaf shapes) of one global step of the
-    trainer run with ``hp`` (unmasked): the server params, with one step,
-    and the S selected clients' masks, with a step per row -- unit masks
-    (per_unit) or server-shaped ones (per_scalar).  The step launches the
-    Adam kernel once for each list."""
+    trainer run with ``hp`` on ``n_clients`` clients (unmasked): the
+    server params, with one step, and the S selected clients' masks, with
+    a step per row -- unit masks (per_unit) or server-shaped ones
+    (per_scalar).  The step launches the Adam kernel once for each
+    list."""
     import torch
     from repro_torch.core import masks
     from repro_torch.core.orchestrator import n_selected
     from repro_torch.models import lenet
     from repro_torch.weights import tree_leaves
-    S = n_selected(N_CLIENTS, hp.eta)
+    S = n_selected(n_clients, hp.eta)
     server = lenet.init_server_params(cfg, torch.Generator().manual_seed(0))
     if hp.mask_mode == "per_scalar":
         m = masks.init_scalar_masks(server, S)
@@ -777,6 +872,65 @@ def check_slice_kernels(cfg, runs, gen, checked):
              "masked_adam [serialized] one client's server step")
     adam_row([adam_inputs([m[1:] for m in masks], False, gen)], kw, True,
              "client_adam [serialized] one client's mask row")
+    # the streamed runs' client steps, a chunk's rows at a time
+    for rows in sorted({m for hp in runs.values() if hp.streamed
+                        for m in chunk_rows(hp)} - {N_CLIENTS}):
+        check_ntxent(cfg, runs["main"], gen, C=rows)
+        adam_row([adam_inputs(client_adam_leaves(cfg, runs["main"],
+                                                 rows=rows), True, gen)],
+                 kw, True, f"client_adam [stream] {rows} rows of a chunk")
+
+
+def population_runs():
+    """Phase 4b's runs: the main run's hparams on POPULATION's clients for
+    one local and one global round, resident on the round rung and
+    streamed ``stream_chunk`` rows at a time."""
+    import dataclasses
+    main = trainer_runs()["main"]
+    resident = dataclasses.replace(main, rounds=2)
+    return {"resident": resident,
+            "streamed": dataclasses.replace(
+                resident, streamed=True,
+                stream_chunk=POPULATION["stream_chunk"])}
+
+
+def check_more_shapes(cfg, runs, gen, checked):
+    """The kernels at the shapes of phase 4b's runs that phase 4's do not
+    give them: the panel GEMM at C=256 clients (resident, and a 32-row
+    chunk), NT-Xent and the client step's Adam over all 256 rows (the
+    resident client step; a 32-row chunk's are phase 4's main shapes),
+    and masked Adam as the global step launches it over the server leaves
+    and the S=n_selected(256, eta) mask rows; then the panel GEMM at every
+    conv shape of the main run's hparams with the split after conv block
+    2 (mu 0.5) and 4 (mu 0.75), whose plans no run of this script reaches
+    otherwise."""
+    import dataclasses
+    from repro_torch.core.orchestrator import n_selected
+    from repro_torch.models import lenet
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+    n = POPULATION["clients"]
+    for label, hp in population_runs().items():
+        new = []
+        for shape in gemm_shapes(cfg, hp, n):
+            key = (hp.fused_epilogue,) + tuple(shape[1:5])
+            if key not in checked:
+                checked.add(key)
+                new.append(shape)
+        if new:
+            check_gemm(cfg, hp, gen, shapes=new, run=f"C={n} {label}")
+    check_ntxent(cfg, runs["main"], gen, C=n)
+    hp = population_runs()["resident"]
+    adam_row([adam_inputs(client_adam_leaves(cfg, hp, rows=n), True, gen)],
+             kw, True, f"client_adam C={n} one client step")
+    server, masks = adam_leaves(cfg, hp, n)
+    adam_row([adam_inputs(server, False, gen), adam_inputs(masks, True, gen)],
+             kw, False, f"masked_adam C={n} one global step "
+             f"(S={n_selected(n, hp.eta)} mask rows)")
+    for mu in (0.5, 0.75):
+        cfg_mu = dataclasses.replace(cfg, mu=mu)
+        check_gemm(cfg_mu, runs["main"], gen,
+                   run=f"mu={mu} split after block "
+                   f"{lenet.split_index(cfg_mu)}")
 
 
 def ntxent_loss_f64(q, y, tau):
@@ -999,12 +1153,16 @@ def log_selections(orch):
 def one_round(tr, iters, global_phase=True, n_rounds=1):
     """A callable running ``n_rounds`` rounds of ``iters`` on ``tr``'s
     rung: T eager iterations per round, round-rung rounds, or one epoch
-    of ``n_rounds`` rounds."""
+    of ``n_rounds`` rounds; streamed rounds where ``tr`` streams."""
     T = min(len(it) for it in iters)
     if rung(tr.hp) == "epoch":
+        if tr._streamed:
+            return lambda: tr._run_epoch_streamed(n_rounds, T, global_phase,
+                                                  lambda: iters)
         return lambda: tr._run_epoch_scan([iters] * n_rounds, T,
                                           global_phase)
-    run = tr._run_round_scan if rung(tr.hp) == "round" \
+    run = tr._run_round_streamed if tr._streamed \
+        else tr._run_round_scan if rung(tr.hp) == "round" \
         else tr._run_round_eager
 
     def rounds():
@@ -1064,6 +1222,10 @@ def run_trainer(cfg, hp, clients, label):
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"[{label}] launches {launches} in training, "
                              f"derived from the hparams: {want}")
+    if not hp.batched_conv and (launches["panel_gemm"]
+                                or launches["panel_gemm_bias_relu"]):
+        raise AssertionError(f"[{label}] batched_conv=False launched the "
+                             f"panel GEMM: {launches}")
 
     # one more global round on the run's rung: launches, time, profile
     run = one_round(tr, fixed_iters(clients, hp.batch_size, T))
@@ -1143,25 +1305,40 @@ def compare_rungs(results, cfg, clients):
     from repro_torch.weights import tree_leaves
     for label, ref in SAME_SELECTIONS:
         base, other = results[ref][2], results[label][2]
+        tr = results[label][1]
         same_sel = len(other["selections"]) == len(base["selections"]) and \
             all(np.array_equal(a, b) for a, b in zip(other["selections"],
                                                      base["selections"]))
-        meter = {f: (getattr(other["meter"], f), getattr(base["meter"], f))
+        # a streamed run against a resident one bills the store's traffic
+        # on host_device_bytes besides
+        store = store_bill(tr, clients) \
+            if tr._streamed and not results[ref][1]._streamed else 0.0
+        meter = {f: (getattr(other["meter"], f), getattr(base["meter"], f)
+                     + (store if f == "host_device_bytes" else 0.0))
                  for f in ("bandwidth_bytes", "client_flops", "server_flops",
                            "host_device_bytes", "interconnect_bytes")}
         same_meter = all(a == b for a, b in meter.values())
-        worst = max((float(np.abs(a.astype(np.float64) - b).max())
-                     for a, b in zip(tree_leaves(other["state"]),
-                                     tree_leaves(base["state"])) if a.size),
-                    default=0.0)
-        print(f"  {label} ({rung(results[label][1].hp)} rung) vs {ref} "
-              f"({rung(results[ref][1].hp)} rung): "
+        worst, flips, total = state_diff(other["state"], base["state"])
+        if chunk_rows(tr.hp) == chunk_rows(results[ref][1].hp):
+            # the same ops at the same shapes: bit-equal
+            close = worst == 0.0
+            what = f"state max abs diff={worst:.3e} (must be 0)"
+        else:
+            steps = tr.hp.rounds * (len(clients[0].x) // tr.hp.batch_size)
+            close, what = chunked_state_close(worst, flips, total,
+                                              tr.hp.lr, steps)
+        if store:
+            what += f"; store traffic {store} B on host_device_bytes besides"
+        kind = rung(tr.hp) + (" rung, streamed" if tr._streamed
+                              else " rung")
+        print(f"  {label} ({kind}) vs {ref} ({rung(results[ref][1].hp)} "
+              f"rung): "
               f"{len(base['selections'])} selections equal={same_sel} "
-              f"meter totals equal={same_meter} state max abs "
-              f"diff={worst:.3e} (expected 0)")
-        if not (same_sel and same_meter):
-            raise AssertionError(f"{label} selected or billed otherwise "
-                                 f"than {ref}")
+              f"meter totals equal={same_meter} {what}")
+        if not (same_sel and same_meter and close):
+            raise AssertionError(f"{label} selected, billed or trained "
+                                 f"otherwise than {ref}")
+    check_conv_ref(results, clients)
     for label in ("joint", "joint_eager", "joint_epoch"):
         hp, meter = results[label][1].hp, results[label][2]["meter"]
         T = len(clients[0].x) // hp.batch_size
@@ -1176,6 +1353,191 @@ def compare_rungs(results, cfg, clients):
         if meter.bandwidth_bytes != want:
             raise AssertionError(f"[{label}] bills {meter.bandwidth_bytes} "
                                  f"bytes, not {want}")
+
+
+def chunked_state_close(worst, flips, total, lr, steps):
+    """Whether a streamed run whose client steps take other row counts
+    than its resident twin's (chunks against all C rows) ended close to
+    it after ``steps`` Adam steps: phase 3's card-vs-CPU bound, 2.5 lr a
+    step and 0.1% of the elements off for a round of 2 iterations,
+    scaled to the steps.  A chunk's rows take other GEMM plans (cuBLAS's
+    backward among them) than all C rows: float32 sums in other orders,
+    through Adam's early ~lr*sign(g) steps.  The element count is what
+    binds the params: Adam moves a parameter by at most ~lr a step, so
+    two runs part by at most ~2 lr a step, under the max-abs bound, which
+    binds only the Adam moments.  The ``stream_whole`` and
+    ``stream_eager`` witnesses, bit-equal to their twins, show that the
+    store, the ring and pass B add no difference of their own.  Returns
+    (close, what to print)."""
+    tol, off = 2.5 * lr * steps, 5e-4 * steps
+    close = worst <= tol and flips <= off * total
+    return close, (f"state max abs diff={worst:.3e} (bound {tol:.1e}, binds "
+                   f"the Adam moments) elements_off={flips}/{total} (bound "
+                   f"{off:.1%})")
+
+
+def store_bill(tr, clients):
+    """The store traffic a streamed run billed on ``host_device_bytes``
+    over its training (``_stream_store_bytes`` of each round)."""
+    T = len(clients[0].x) // tr.hp.batch_size
+    n_local = int(round(tr.hp.kappa * tr.hp.rounds))
+    return (n_local * tr._stream_store_bytes(T, False)
+            + (tr.hp.rounds - n_local) * tr._stream_store_bytes(T, True))
+
+
+def check_conv_ref(results, clients):
+    """The library-conv run bills per round as the main run does (per
+    global round its bandwidth and server FLOPs, per round its client
+    FLOPs and host<->device bytes); its selections printed beside the
+    main run's first global round's."""
+    main, conv = results["main"], results["conv_ref"]
+    rounds = {}
+    for label, (_, tr, _) in (("main", main), ("conv_ref", conv)):
+        n_local = int(round(tr.hp.kappa * tr.hp.rounds))
+        rounds[label] = {"all": tr.hp.rounds,
+                         "global": tr.hp.rounds - n_local}
+    bad = []
+    for f, per in (("bandwidth_bytes", "global"), ("server_flops", "global"),
+                   ("client_flops", "all"), ("host_device_bytes", "all")):
+        want = getattr(main[2]["meter"], f) / rounds["main"][per] \
+            * rounds["conv_ref"][per]
+        if getattr(conv[2]["meter"], f) != want:
+            bad.append((f, getattr(conv[2]["meter"], f), want))
+    T = len(clients[0].x) // conv[1].hp.batch_size
+    print(f"  conv_ref (batched_conv=False) bills per round as main: "
+          f"{not bad}; its selections "
+          f"{[s.tolist() for s in conv[2]['selections']]}, main's first "
+          f"global round's {[s.tolist() for s in main[2]['selections'][:T]]}")
+    if bad:
+        raise AssertionError(f"conv_ref bills otherwise than main: {bad}")
+
+
+def check_stream_syncs(results, clients):
+    """One global and one local streamed round on the round rung (the
+    ``stream`` run) and on the eager rung (``stream_eager``) with
+    ``sync_debug_mode("warn")`` and every warning recorded: the host
+    syncs must be those ``_stream_one_round``'s docstring states,
+    ceil(C / stream_chunk) + 2T and the round's one fetch in a global
+    round, ceil(C / stream_chunk) in a local one."""
+    for label in ("stream", "stream_eager"):
+        count_stream_syncs(label, results[label][1], clients)
+
+
+def count_stream_syncs(label, tr, clients):
+    import warnings
+    import torch
+    T = len(clients[0].x) // tr.hp.batch_size
+    chunks = -(-tr.n // tr._stream_chunk)
+    iters = fixed_iters(clients, tr.hp.batch_size, T)
+    for phase, want in ((True, chunks + 2 * T + 1), (False, chunks)):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                one_round(tr, iters, phase)()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+        what = "global" if phase else "local"
+        print(f"  [{label}] one {what} round on the {rung(tr.hp)} rung "
+              f"({T} iterations, {chunks} chunks) under sync_debug_mode="
+              f"warn: {syncs} host syncs, the formula gives {want}")
+        if syncs != want:
+            raise AssertionError(f"[{label}] {syncs} host syncs in a {what} "
+                                 f"round, not {want}")
+
+
+def population(cfg):
+    """Phase 4b: POPULATION's clients at full width, one local and one
+    global round, resident on the round rung and then streamed (its
+    chunks of ``stream_chunk`` rows): each one's global-iteration wall
+    ms, its peak device memory and the memory it holds between the two
+    rounds, both above what was allocated before the trainer was made.
+    The streamed run must hold at least C x a client's store row (params,
+    Adam moments, masks, mask-Adam) less between rounds, and peak lower;
+    each run's kernel launches must be those ``iteration_launches``
+    derives from its hparams at C clients (the client step's once per
+    chunk, streamed); both must select and bill the protocol alike, and
+    end within ``chunked_state_close`` of each other."""
+    import numpy as np
+    import torch
+    from repro_torch.core.adasplit import AdaSplitTrainer
+    from repro_torch.data.synthetic import mixed_noniid
+    p = POPULATION
+    n = p["clients"]
+    clients = mixed_noniid(n, n_per_client=p["n_per_client"],
+                           n_test=p["n_test"])
+    out = {}
+    for label, hp in population_runs().items():
+        T = p["n_per_client"] // hp.batch_size
+        iters = fixed_iters(clients, hp.batch_size, T)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_make = time.perf_counter()
+        tr = AdaSplitTrainer(cfg, hp, clients, device="cuda")
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t_make
+        selections = log_selections(tr.orch)
+        held, ms = [], {}
+        reset_launches()
+        for phase in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_round(tr, iters, phase)()
+            torch.cuda.synchronize()
+            ms[phase] = (time.perf_counter() - t0) * 1e3 / T
+            held.append(torch.cuda.memory_allocated() - base)
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = read_launches()
+        local = iteration_launches(cfg, hp, False, n_clients=n)
+        want = {k: T * (v + local[k])
+                for k, v in iteration_launches(cfg, hp, n_clients=n).items()}
+        print(f"  [population {label}] launches over the two rounds "
+              f"{json.dumps(launches)}, derived from the hparams "
+              f"{json.dumps(want)}")
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"[population {label}] launches {launches}"
+                                 f", derived from the hparams: {want}")
+        row = tr.store.row_nbytes(("cp", "co", "m", "mo")) \
+            if tr._streamed else None
+        out[label] = {"held": held, "peak": peak, "row": row,
+                      "selections": selections, "meter": tr.meter,
+                      "state": tr.get_state(), "lr": hp.lr, "steps": 2 * T}
+        print(f"  [population {label}] C={tr.n} B={hp.batch_size} T={T}"
+              f"{f' chunk={tr._stream_chunk}' if tr._streamed else ''}: "
+              f"made in {made_s:.2f} s; local iteration wall ms "
+              f"{ms[False]:.3f}, global iteration wall ms {ms[True]:.3f} "
+              f"(host clock, synced, one round each); memory_allocated "
+              f"after the local round {held[0]} B, after the global round "
+              f"{held[1]} B; peak {peak} B (max_memory_allocated, above "
+              f"the {base} B held before)")
+        del tr
+    res, st = out["resident"], out["streamed"]
+    need = p["clients"] * st["row"]
+    saved = res["held"][0] - st["held"][0]
+    same_sel = len(res["selections"]) == len(st["selections"]) > 0 and \
+        all(np.array_equal(a, b) for a, b in
+            zip(res["selections"], st["selections"]))
+    same_bill = all(getattr(res["meter"], f) == getattr(st["meter"], f)
+                    for f in ("bandwidth_bytes", "client_flops",
+                              "server_flops"))
+    worst, flips, total = state_diff(st["state"], res["state"])
+    close, what = chunked_state_close(worst, flips, total, st["lr"],
+                                      st["steps"])
+    print(f"  [population] between rounds the streamed run holds {saved} B "
+          f"less (C x store row = {n} x {st['row']} = {need} B);"
+          f" peak {st['peak']} B against {res['peak']} B "
+          f"({st['peak'] / res['peak']:.3f}); {len(st['selections'])} "
+          f"selections equal={same_sel}; protocol meters equal={same_bill};"
+          f" streamed vs resident {what}")
+    if not (saved >= need and st["peak"] < res["peak"] and same_sel
+            and same_bill and close):
+        raise AssertionError("the streamed population does not hold less "
+                             "than the resident one, or selects, bills or "
+                             "trains otherwise")
 
 
 def fetches_under_sync_check(tr, fn):
@@ -2318,6 +2680,7 @@ def main() -> int:
                for hp in (runs["main"], runs["fused_epilogue+per_scalar"])
                for shape in gemm_shapes(cfg, hp)}
     check_slice_kernels(cfg, runs, gen, checked)
+    check_more_shapes(cfg, runs, gen, checked)
     phase_done(2)
 
     # phase 3 ---------------------------------------------------------
@@ -2335,6 +2698,7 @@ def main() -> int:
     compare_rungs(results, cfg, clients)
     time_rungs(results, clients)
     check_syncs(results, clients)
+    check_stream_syncs(results, clients)
     check_loop_reads(results["loop"][1], clients)
     api = kernel_api(cfg, results["main"][1], clients, runs["main"])
     counts = {label: r[0] for label, r in results.items()}
@@ -2347,7 +2711,15 @@ def main() -> int:
                 "ntxent_backward": counts["main"]["ntxent_backward"],
                 "soft_threshold": api["soft_threshold"]}
     del results
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
     phase_done(4)
+
+    # phase 4b --------------------------------------------------------
+    print(f"phase 4b: a population of {POPULATION['clients']} clients at "
+          "full width, resident and streamed, two rounds each")
+    population(cfg)
+    torch.cuda.empty_cache()
+    phase_done("4b")
 
     # phase 5 ---------------------------------------------------------
     lm = get_config(SERVE_ARCH)

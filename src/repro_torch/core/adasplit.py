@@ -1,7 +1,7 @@
 """The AdaSplit training protocol (paper §3), classification form — port
-of ``repro.core.adasplit`` with client state resident on one device, in
-every global-phase form the reference runs there, on its three dispatch
-rungs.
+of ``repro.core.adasplit`` on one device, in every global-phase form the
+reference runs there, on its three dispatch rungs, with the client
+state resident or streamed through a host or disk store.
 
 Each iteration:
 
@@ -52,16 +52,34 @@ when the host waits for the device:
   k+1 uploaded on a side stream under chunk k's compute); ONE fetch per
   global epoch, none per local one.
 
+Orthogonally to the rungs, the per-client state is resident (the
+default: stacked (C, ...) trees on the device) or streamed
+(``streamed=True``, the eager, round and epoch rungs alike): the
+params, Adam moments and masks live in a ``core/client_store.py`` store
+(``store_backend`` "host", pinned tensors, or "disk", memmapped
+checkpoint directories) and each round runs as two passes that commute
+exactly with the resident interleaving (``_stream_one_round``): every
+client's T client steps ``stream_chunk`` rows at a time, then the
+global iterations on the spilled activations, each staging only its S
+selected clients' mask rows.  The device holds O(chunk) + O(S) client
+rows, never O(C); the bandit state and selection stay on it for the
+whole population.  The joint ablation and the per-client loop fall back
+to resident with a warning, as in the reference.
+
 ``evaluate()`` and ``c3()`` (eq. 9) follow the rounds.  Every conv runs
-through the panel-GEMM kernel on the card.  The trainer runs on the
-device it is given (``"cuda"`` by default) and never moves work to the
-CPU on its own.
+through the panel-GEMM kernel on the card (``batched_conv=False``: the
+library conv, the reference path); the server and mask Adam steps take
+masked Adam's rounding order (``adam_update``'s under
+``fused_server_adam=False`` / ``fused_mask_adam=False``).  The trainer
+runs on the device it is given (``"cuda"`` by default) and never moves
+work to the CPU on its own.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,9 +88,10 @@ from repro_torch.core import masks as masks_mod
 from repro_torch.core.accounting import (Meter, lenet_flops_per_example,
                                          split_payload_bytes)
 from repro_torch.core.c3 import c3_score
+from repro_torch.core.client_store import make_store
 from repro_torch.core.losses import accuracy, l1_penalty, token_nll
 from repro_torch.core.orchestrator import (Orchestrator, ucb_new_round,
-                                           ucb_select, ucb_update)
+                                           ucb_select, ucb_update_selected)
 from repro_torch.data.synthetic import batch_iterator
 from repro_torch.kernels.client_conv import client_proj
 from repro_torch.kernels.masked_adam import fused_adam_update
@@ -80,7 +99,8 @@ from repro_torch.kernels.ntxent import ntxent_loss
 from repro_torch.models import lenet
 from repro_torch.optim.adam import adam_init, adam_update
 from repro_torch.utils.tree import tree_grads, tree_requires_grad
-from repro_torch.weights import device_of, from_numpy, to_numpy, tree_map
+from repro_torch.weights import (device_of, from_numpy, to_host, to_numpy,
+                                 tree_leaves, tree_map, tree_unflatten)
 
 
 @dataclass
@@ -110,6 +130,20 @@ class AdaSplitHParams:
                                     # fetch per global epoch
     epoch_chunk_rounds: int = 0     # rounds per staged chunk (0 = the
                                     # whole epoch at once)
+    fused_mask_adam: Optional[bool] = None    # mask / server Adam order:
+    fused_server_adam: Optional[bool] = None  # False adam_update's; any
+                                    # other value (None, the reference's
+                                    # default, or True) masked Adam's
+    batched_conv: bool = True       # convs as panel GEMMs (False = the
+                                    # library conv, the reference path)
+    streamed: bool = False          # client state in a host/disk store:
+                                    # the device holds O(chunk) + O(S)
+                                    # client rows instead of O(C)
+    store_backend: str = "host"     # "host" (pinned tensors) | "disk"
+                                    # (checkpoint-directory memmaps)
+    store_dir: Optional[str] = None  # DiskStore directory (None = tmp)
+    stream_chunk: int = 0           # client rows per streamed chunk
+                                    # (0 = auto: max(32, S), at most C)
     seed: int = 0
 
 
@@ -147,10 +181,6 @@ def _set_row(tree, k: int, new):
 
 
 class AdaSplitTrainer:
-    # the state trees, under the names ``get_state``/``set_state`` use
-    STATE_KEYS = ("client_params", "proj_params", "server_params", "s_opt",
-                  "c_opt", "masks", "m_opt")
-
     def __init__(self, cfg, hp: AdaSplitHParams, clients, *,
                  device="cuda", jitter=None):
         self.cfg, self.hp, self.clients = cfg, hp, clients
@@ -158,6 +188,29 @@ class AdaSplitTrainer:
         self.device = device_of(device)
         self.orch = Orchestrator(self.n, hp.eta, hp.gamma, seed=hp.seed,
                                  device=self.device, jitter=jitter)
+        self._streamed = hp.streamed
+        if self._streamed and hp.server_grad_to_client:
+            warnings.warn(
+                "streamed=True is incompatible with the joint "
+                "server_grad_to_client step (it updates client params "
+                "mid-round, so the client/global passes no longer "
+                "commute); falling back to the resident path")
+            self._streamed = False
+        if self._streamed and not hp.global_batch:
+            warnings.warn("streamed=True requires the batched global "
+                          "phase (global_batch=True); falling back to "
+                          "the resident path")
+            self._streamed = False
+        self._stream_chunk = min(self.n, hp.stream_chunk
+                                 or max(32, self.orch.k))
+        self._fwd_kw = dict(fused_epilogue=hp.fused_epilogue,
+                            batched_conv=hp.batched_conv)
+        # the server's and the masks' Adam order, resolved once: False
+        # selects adam_update's, None and True masked Adam's
+        self._server_adam_step = adam_update \
+            if hp.fused_server_adam is False else fused_adam_update
+        self._mask_adam_step = adam_update \
+            if hp.fused_mask_adam is False else fused_adam_update
         gen = torch.Generator().manual_seed(hp.seed)
         dev = lambda tree: tree_map(lambda t: t.to(self.device), tree)
 
@@ -165,24 +218,22 @@ class AdaSplitTrainer:
         acts_dim = int(np.prod(self._acts_spatial))
         self.server_params = dev(lenet.init_server_params(cfg, gen))
         self.s_opt = adam_init(self.server_params)
-        self.client_params = dev(_stack(
-            [lenet.init_client_params(cfg, gen) for _ in range(self.n)]))
-        self.proj_params = dev(_stack(
-            [_proj_init(gen, acts_dim, hp.proj_dim) for _ in range(self.n)]))
-        if hp.mask_mode == "per_scalar":
-            self.masks = masks_mod.init_scalar_masks(self.server_params,
-                                                     self.n)
+        self.store = None
+        if self._streamed:
+            self._init_streamed_store(gen, acts_dim)
+            self.client_params = self.proj_params = None
+            self.masks = self.c_opt = self.m_opt = None
         else:
-            self.masks = masks_mod.init_lenet_unit_masks(cfg, self.n,
-                                                         self.device)
-        # per-client Adam states carry a per-client step vector
-        self.c_opt = adam_init({"c": self.client_params,
-                                "p": self.proj_params})
-        self.c_opt["step"] = torch.zeros((self.n,), dtype=torch.int32,
-                                         device=self.device)
-        self.m_opt = adam_init(self.masks)
-        self.m_opt["step"] = torch.zeros((self.n,), dtype=torch.int32,
-                                         device=self.device)
+            self.client_params = dev(_stack(
+                [lenet.init_client_params(cfg, gen) for _ in range(self.n)]))
+            self.proj_params = dev(_stack(
+                [_proj_init(gen, acts_dim, hp.proj_dim)
+                 for _ in range(self.n)]))
+            self.masks = self._init_masks(self.n, self.device)
+            # per-client Adam states carry a per-client step vector
+            self.c_opt = self._client_opt(
+                {"c": self.client_params, "p": self.proj_params})
+            self.m_opt = self._client_opt(self.masks)
 
         self.meter = Meter()
         self._fl_c = lenet_flops_per_example(cfg, "client")
@@ -192,6 +243,24 @@ class AdaSplitTrainer:
         # (record, summed client loss, T), filled in by the next fetch
         self._pending: List[Tuple[dict, torch.Tensor, int]] = []
         self._rng = np.random.default_rng(hp.seed)
+
+    def _init_masks(self, n: int, device):
+        """(n, ...) masks of ones: per-unit, or per-scalar (server
+        shaped)."""
+        if self.hp.mask_mode == "per_scalar":
+            return masks_mod.init_scalar_masks(
+                tree_map(lambda p: p.to(device), self.server_params), n)
+        return masks_mod.init_lenet_unit_masks(self.cfg, n, device)
+
+    @staticmethod
+    def _client_opt(params):
+        """``adam_init`` of stacked (n, ...) client leaves, with a step per
+        client."""
+        opt = adam_init(params)
+        lead = tree_leaves(params)[0]
+        opt["step"] = torch.zeros(lead.shape[:1], dtype=torch.int32,
+                                  device=lead.device)
+        return opt
 
     # ------------------------------------------------------------------
     def _acts_shape(self):
@@ -203,18 +272,48 @@ class AdaSplitTrainer:
             hw //= 2
         return (hw, hw, self.cfg.conv_channels[s - 1])
 
+    def _client_groups(self):
+        """The per-client state as the store's dict of groups: the
+        store's whole population (CPU tensors) when streamed, else the
+        resident trees."""
+        if self._streamed:
+            return self.store.full()
+        return {"cp": {"c": self.client_params, "p": self.proj_params},
+                "co": self.c_opt, "m": self.masks, "mo": self.m_opt}
+
+    def client_state(self):
+        """Numpy copies of the stacked per-client state as the store's
+        dict of groups ``{"cp": {"c", "p"}, "co", "m", "mo"}``, whatever
+        the residency."""
+        return to_numpy(self._client_groups())
+
     def get_state(self) -> dict:
-        """Numpy copies of the training state and the bandit state."""
-        st = {k: getattr(self, k) for k in self.STATE_KEYS}
-        st["ucb"] = self.orch.state
-        return to_numpy(st)
+        """Numpy copies of the training state and the bandit state (the
+        client state read from the store when streamed)."""
+        g = self._client_groups()
+        return to_numpy({
+            "client_params": g["cp"]["c"], "proj_params": g["cp"]["p"],
+            "c_opt": g["co"], "masks": g["m"], "m_opt": g["mo"],
+            "server_params": self.server_params, "s_opt": self.s_opt,
+            "ucb": self.orch.state})
 
     def set_state(self, state: dict):
         """Adopt a numpy state tree (same keys as :meth:`get_state`, e.g.
-        the reference trainer's state carried across through numpy)."""
-        st = from_numpy(state, self.device)
-        for k in self.STATE_KEYS:
-            setattr(self, k, st[k])
+        the reference trainer's state carried across through numpy),
+        written into the store when streamed."""
+        groups = {"cp": {"c": state["client_params"],
+                         "p": state["proj_params"]},
+                  "co": state["c_opt"], "m": state["masks"],
+                  "mo": state["m_opt"]}
+        if self._streamed:
+            self.store.scatter(np.arange(self.n), from_numpy(groups, "cpu"))
+        else:
+            g = from_numpy(groups, self.device)
+            self.client_params, self.proj_params = g["cp"]["c"], g["cp"]["p"]
+            self.c_opt, self.masks, self.m_opt = g["co"], g["m"], g["mo"]
+        st = from_numpy({k: state[k] for k in ("server_params", "s_opt",
+                                               "ucb")}, self.device)
+        self.server_params, self.s_opt = st["server_params"], st["s_opt"]
         self.orch.state = st["ucb"]
 
     # ------------------------------------------------------------------
@@ -223,28 +322,35 @@ class AdaSplitTrainer:
     def _client_part(self, cp_pp, xs):
         """Client tower and projection head, stacked (C, B, ...) or one
         client's (B, ...) -> (split activations, projections)."""
-        acts = lenet.client_forward(self.cfg, cp_pp["c"], xs,
-                                    fused_epilogue=self.hp.fused_epilogue)
+        acts = lenet.client_forward(self.cfg, cp_pp["c"], xs, **self._fwd_kw)
         return acts, _proj_apply(cp_pp["p"], acts)
 
-    def _client_step(self, xs, ys):
-        """Update every client's tower + head on its own batch; returns
-        the (C, B, H', W', C') split activations and the (C,) losses."""
+    def _client_step_rows(self, cp_pp, c_opt, xs, ys):
+        """Update the towers + heads of stacked (m, ...) client rows
+        ``cp_pp`` (Adam state ``c_opt``, a step per row), each on its own
+        batch; returns (new rows, new Adam state, the (m, B, H', W', C')
+        split activations, the (m,) losses)."""
         hp = self.hp
-        cp_pp = tree_requires_grad({"c": self.client_params,
-                                "p": self.proj_params})
+        p = tree_requires_grad(cp_pp)
         with torch.enable_grad():
-            acts, q = self._client_part(cp_pp, xs)
-            loss = ntxent_loss(q, ys, hp.tau)                     # (C,)
+            acts, q = self._client_part(p, xs)
+            loss = ntxent_loss(q, ys, hp.tau)                     # (m,)
             if hp.act_l1:
                 loss = loss + hp.act_l1 * acts.abs().sum(
                     dim=tuple(range(1, acts.ndim))) / acts.shape[1]
-            g = tree_grads(loss.sum(), cp_pp)
-        new, self.c_opt = adam_update(
-            {"c": self.client_params, "p": self.proj_params}, g,
-            self.c_opt, lr=hp.lr)
+            g = tree_grads(loss.sum(), p)
+        new, c_opt = adam_update(cp_pp, g, c_opt, lr=hp.lr)
+        return new, c_opt, acts.detach(), loss.detach()
+
+    def _client_step(self, xs, ys):
+        """Update every client's tower + head on its own batch (the
+        resident trees); returns the (C, B, H', W', C') split activations
+        and the (C,) losses."""
+        new, self.c_opt, acts, loss = self._client_step_rows(
+            {"c": self.client_params, "p": self.proj_params}, self.c_opt,
+            xs, ys)
         self.client_params, self.proj_params = new["c"], new["p"]
-        return acts.detach(), loss.detach()
+        return acts, loss
 
     # ------------------------------------------------------------------
     # global step: S selected clients in one batched server step
@@ -274,31 +380,38 @@ class AdaSplitTrainer:
         example forward with per-example gates gathered by client id;
         else a forward stacked over the clients, each gated by its own
         (S, U) mask rows (or one client's (U,) ones)."""
-        hp, cfg = self.hp, self.cfg
-        fe = hp.fused_epilogue
+        hp, cfg, kw = self.hp, self.cfg, self._fwd_kw
         if hp.mask_mode == "per_scalar" or not flat:
             if hp.mask_mode == "per_scalar":
                 logits, _ = lenet.server_forward(
-                    cfg, masks_mod.apply_scalar_masks(sp, msel), acts,
-                    fused_epilogue=fe)
+                    cfg, masks_mod.apply_scalar_masks(sp, msel), acts, **kw)
             else:
                 logits, _ = lenet.server_forward(cfg, sp, acts, gates=msel,
-                                                 fused_epilogue=fe)
+                                                 **kw)
             return token_nll(logits, ys).mean(dim=-1)
         S, B = acts.shape[:2]
         seg_ids = torch.arange(S, device=acts.device).repeat_interleave(B)
         gates = tree_map(lambda l: l[seg_ids], msel)
         logits, _ = lenet.server_forward(
             cfg, sp, acts.reshape((S * B,) + acts.shape[2:]), gates=gates,
-            fused_epilogue=fe)
+            **kw)
         return self.seg_ces(logits, ys.reshape(-1), S)
 
     def _server_adam(self, g_sp):
-        """The server's fused Adam step (one kernel launch on the card),
-        on ``self``."""
+        """The server's Adam step (one kernel launch on the card), on
+        ``self``: masked Adam's rounding order, or ``adam_update``'s
+        under ``fused_server_adam=False``."""
         with torch.no_grad():
-            self.server_params, self.s_opt = fused_adam_update(
+            self.server_params, self.s_opt = self._server_adam_step(
                 self.server_params, g_sp, self.s_opt, lr=self.hp.lr)
+
+    def _mask_adam(self, masks_sel, g_m, m_opt_sel):
+        """The selected clients' mask-Adam step, a step per row (one
+        kernel launch on the card): masked Adam's rounding order, or
+        ``adam_update``'s under ``fused_mask_adam=False``."""
+        with torch.no_grad():
+            return self._mask_adam_step(masks_sel, g_m, m_opt_sel,
+                                        lr=self.hp.lr)
 
     def global_step(self, masks_sel, m_opt_sel, acts_sel, ys_sel):
         """One server step over the selection; updates the server in
@@ -327,9 +440,7 @@ class AdaSplitTrainer:
             total = ces.sum() + hp.lam * l1_penalty(msel) * S
             g_sp, g_m = tree_grads(total, (sp, msel))
         self._server_adam(tree_map(lambda t: t / S, g_sp))
-        with torch.no_grad():
-            masks_sel, m_opt_sel = fused_adam_update(
-                masks_sel, g_m, m_opt_sel, lr=hp.lr)
+        masks_sel, m_opt_sel = self._mask_adam(masks_sel, g_m, m_opt_sel)
         return masks_sel, m_opt_sel, ces.detach(), fracs
 
     def server_step(self, mask_i, m_opt_i, acts, y):
@@ -401,9 +512,7 @@ class AdaSplitTrainer:
             g_c, g_sp, g_m = tree_grads(total, (cp, sp, msel))
         cp_sel, c_opt_sel = adam_update(cp_sel, g_c, c_opt_sel, lr=hp.lr)
         self._server_adam(tree_map(lambda t: t / S, g_sp))
-        with torch.no_grad():
-            masks_sel, m_opt_sel = fused_adam_update(
-                masks_sel, g_m, m_opt_sel, lr=hp.lr)
+        masks_sel, m_opt_sel = self._mask_adam(masks_sel, g_m, m_opt_sel)
         return cp_sel, c_opt_sel, masks_sel, m_opt_sel, ces.detach(), fracs
 
     def _selected_step(self, idx, acts, xs, ys):
@@ -544,10 +653,8 @@ class AdaSplitTrainer:
             return ucb, closs, None
         idx = ucb_select(ucb, self.orch.k, jitter)
         ces, fracs = self._selected_step(idx, acts, x, y)
-        zeros = torch.zeros((self.n,), device=self.device)
-        sel = zeros.index_fill(0, idx, 1.0)
-        dense = zeros.index_copy(0, idx, ces)
-        ucb = ucb_update(ucb, sel, dense, gamma=self.hp.gamma)
+        ucb = ucb_update_selected(ucb, idx, ces, n=self.n,
+                                  gamma=self.hp.gamma)
         return ucb, closs, (idx, ces, fracs)
 
     def _device_round(self, staged, ucb, global_phase: bool):
@@ -564,21 +671,22 @@ class AdaSplitTrainer:
         return ucb, closs, outs
 
     def _stage_host(self, rounds, T: int):
-        """Host-side staging: R rounds' per-client batch lists as (R, T,
-        C, B, ...) images and (R, T, C, B) labels, each batch written
-        once, on the card into pinned memory (the source of an
-        asynchronous copy)."""
+        """Host-side staging: R rounds' per-client batch lists (of C
+        clients, or of a streamed chunk's rows) as (R, T, C, B, ...)
+        images and (R, T, C, B) labels, each batch written once, on the
+        card into pinned memory (the source of an asynchronous copy)."""
         pin = self.device.type == "cuda"
         x0, y0 = rounds[0][0][0]
+        n = len(rounds[0])
         out = []
         for j, a0 in enumerate((x0, y0)):
-            buf = torch.empty((len(rounds), T, self.n) + a0.shape,
+            buf = torch.empty((len(rounds), T, n) + a0.shape,
                               dtype=torch.from_numpy(a0).dtype,
                               pin_memory=pin)
             view = buf.numpy()
             for r, iters in enumerate(rounds):
                 for t in range(T):
-                    np.stack([iters[i][t][j] for i in range(self.n)],
+                    np.stack([iters[i][t][j] for i in range(n)],
                              out=view[r, t])
             out.append(buf)
         return out
@@ -653,14 +761,31 @@ class AdaSplitTrainer:
         staged, _ = self._upload(host)
         ucb, closs, outs = self._device_round(staged, self.orch.state,
                                               global_phase)
+        if global_phase:
+            outs = tuple(torch.stack(o) for o in zip(*outs))
+        return self._close_round(T, global_phase, ucb, closs, outs)
+
+    def _close_round(self, T: int, global_phase: bool, ucb, closs, outs,
+                     store_bytes: float = 0.0):
+        """The round rungs' tail: bill the round (``store_bytes`` of a
+        streamed round's store traffic on ``host_device_bytes`` besides)
+        and, in a global round, fetch its outputs in the round's one sync
+        and hand the selections to the orchestrator.  ``outs`` is (T, k)
+        selections (device, or host when the caller read them already),
+        CE losses and nnz fractions on the device -> (summed client loss,
+        CE losses (T*k,) or None)."""
         bill = self._round_bill(T)
+        bill["host_device_bytes"] += store_bytes
         if not global_phase:
             self.meter.ingest_round(n_selected=0, **bill)
             self.orch.state = ucb
             return closs, None
-        idx, ces, fracs = (torch.stack(o) for o in zip(*outs))
-        closs_h, idx_h, ces_h, fracs_h = self._fetch([closs, idx, ces,
-                                                      fracs])  # one sync
+        idx, ces, fracs = outs
+        on_device = torch.is_tensor(idx)
+        got = self._fetch([closs, ces, fracs]
+                          + ([idx] if on_device else []))  # one sync
+        closs_h, ces_h, fracs_h = got[:3]
+        idx_h = got[3] if on_device else idx
         self.meter.ingest_round(
             nnz_fracs=fracs_h if self.hp.act_l1 else None,
             n_selected=idx_h.shape[1], **bill)
@@ -714,22 +839,257 @@ class AdaSplitTrainer:
                 outs += out
             del staged
 
+        if global_phase:
+            outs = tuple(torch.stack(o).reshape((R, T) + o[0].shape)
+                         for o in zip(*outs))
+        return self._close_epoch(R, T, global_phase, ucb, closs, outs)
+
+    def _close_epoch(self, R: int, T: int, global_phase: bool, ucb, closs,
+                     outs, store_bytes: float = 0.0):
+        """The epoch rung's tail, as :meth:`_close_round` for R rounds:
+        one ``ingest_epoch`` bill, and in a global epoch the epoch's one
+        fetch of (R, T, k) outputs -> (per-round (summed client loss, CE
+        losses), cumulative meter summaries)."""
         bill = self._round_bill(T)
+        bill["host_device_bytes"] += store_bytes
         if not global_phase:
             summaries = self.meter.ingest_epoch(n_rounds=R, n_selected=0,
                                                 **bill)
             self.orch.ingest_epoch(None, None, state=ucb, n_rounds=R)
             return [(cl, None) for cl in closs], summaries
-        idx, ces, fracs = (torch.stack(o).reshape((R, T) + o[0].shape)
-                           for o in zip(*outs))
-        closs_h, idx_h, ces_h, fracs_h = self._fetch(
-            [torch.stack(closs), idx, ces, fracs])     # the one epoch sync
+        idx, ces, fracs = outs
+        on_device = torch.is_tensor(idx)
+        got = self._fetch([torch.stack(closs), ces, fracs]
+                          + ([idx] if on_device else []))  # the epoch sync
+        closs_h, ces_h, fracs_h = got[:3]
+        idx_h = got[3] if on_device else idx
         summaries = self.meter.ingest_epoch(
-            n_rounds=R, nnz_fracs=fracs_h if hp.act_l1 else None,
+            n_rounds=R, nnz_fracs=fracs_h if self.hp.act_l1 else None,
             n_selected=idx_h.shape[-1], **bill)
         self.orch.ingest_epoch(idx_h.astype(np.int64), ces_h, state=ucb)
         return ([(float(closs_h[r]), ces_h[r].reshape(-1).astype(np.float64))
                  for r in range(R)], summaries)
+
+    # ------------------------------------------------------------------
+    # streamed residency: client state in a store, O(chunk) + O(S) rows
+    # on the device
+    # ------------------------------------------------------------------
+    def _init_streamed_store(self, gen, acts_dim: int):
+        """Fill the client store chunk by chunk, never making the stacked
+        (C, ...) trees: every client tower first, then every projection
+        head, drawn from ``gen`` in the resident init's order, so a
+        streamed trainer starts from exactly the resident trainer's
+        state; masks are ones and the Adam states zeros."""
+        hp, cfg, n = self.hp, self.cfg, self.n
+        self.store = make_store(hp.store_backend, n, directory=hp.store_dir,
+                                pin=self.device.type == "cuda")
+        meta = torch.device("meta")
+        one = torch.Generator().manual_seed(0)     # shapes only
+        cp = {"c": lenet.init_client_params(cfg, one),
+              "p": _proj_init(one, acts_dim, hp.proj_dim)}
+        cp = tree_map(lambda l: torch.empty((n,) + tuple(l.shape),
+                                            dtype=l.dtype, device=meta), cp)
+        masks = self._init_masks(n, meta)
+        groups = {"cp": cp, "co": self._client_opt(cp), "m": masks,
+                  "mo": self._client_opt(masks)}
+        for name, tree in groups.items():
+            self.store.alloc(name, tree)
+        chunks = [np.arange(i0, min(n, i0 + self._stream_chunk))
+                  for i0 in range(0, n, self._stream_chunk)]
+        for part, draw in (
+                ("c", lambda: lenet.init_client_params(cfg, gen)),
+                ("p", lambda: _proj_init(gen, acts_dim, hp.proj_dim))):
+            for rows in chunks:
+                self.store.scatter(rows, {"cp": {
+                    part: _stack([draw() for _ in rows])}})
+
+        def filled(tree, value, m):
+            return tree_map(lambda l: torch.full(
+                (m,) + tuple(l.shape[1:]), value, dtype=l.dtype), tree)
+        for rows in chunks:
+            self.store.scatter(rows, {"co": filled(groups["co"], 0, len(rows)),
+                                      "m": filled(masks, 1, len(rows)),
+                                      "mo": filled(groups["mo"], 0,
+                                                   len(rows))})
+
+    def _stream_store_bytes(self, T: int, global_phase: bool) -> float:
+        """Host<->device bytes of ONE streamed round's store traffic, on
+        top of the data staging every rung bills (the reference's
+        formula): every client's params/opt row up and down once and its
+        (T, B, ...) split activations down in the client pass; per global
+        iteration the S selected clients' mask/opt rows up and down and
+        their activations and labels up again.  Host and disk rows have
+        the same bytes, so the bill does not depend on the backend."""
+        hp = self.hp
+        act = 4 * int(np.prod(self._acts_spatial))
+        b = 2.0 * self.store.nbytes(("cp", "co"))
+        b += float(T * self.n * hp.batch_size * act)
+        if global_phase:
+            row = self.store.row_nbytes(("m", "mo"))
+            payload = hp.batch_size * (act + 4)
+            b += float(T * self.orch.k * (2 * row + payload))
+        return b
+
+    def _put(self, tree):
+        """A tree of host tensors on the device (without blocking, from
+        pinned memory, on the card)."""
+        dev, _ = self._upload(tree_leaves(tree))
+        return tree_unflatten(tree, dev)
+
+    def _client_pass(self, iters, T: int):
+        """Pass A: every client's T client steps, ``stream_chunk`` rows at
+        a time, its params/opt rows gathered from the store and scattered
+        back.  On the round and epoch rungs each chunk's batches and rows
+        go up through a two-slot ring: chunk k+1's gather and upload run
+        (on a side stream) under chunk k's steps; on the eager rung each
+        iteration's batch goes up on its own.  Each chunk's split
+        activations and rows come down in ONE host sync, the activations
+        into a host buffer for pass B.  Returns (activations (T, C, B,
+        ...) and labels (T, C, B) on the host, per-client losses (T, C)
+        on the device)."""
+        n, chunk = self.n, self._stream_chunk
+        ring_rung = self.hp.round_scan
+        side = (torch.cuda.Stream(self.device)
+                if ring_rung and self.device.type == "cuda" else None)
+        pin = self.device.type == "cuda"
+        starts = list(range(0, n, chunk))
+
+        def stage(i0):
+            rows = np.arange(i0, min(n, i0 + chunk))
+            xs, ys = self._stage_host([iters[i0:i0 + len(rows)]], T)
+            g = self.store.gather(rows, ("cp", "co"))
+            if not ring_rung:
+                return rows, xs[0], ys[0], self._put(g)
+            return rows, ys[0], g, self._upload(
+                [xs[0], ys[0]] + tree_leaves(g), side)
+
+        acts_h = ys_h = None
+        losses = torch.empty((T, n), device=self.device)
+        ring = [stage(0)]
+        for ci in range(len(starts)):
+            if ring_rung:
+                rows, ys_host, g, staged = ring.pop(0)
+                xs_d, ys_d, *leaves = self._adopt(staged)
+                g = tree_unflatten(g, leaves)
+            else:
+                rows, xs_host, ys_host, g = ring.pop(0)
+            cp, co = g["cp"], g["co"]
+            acts, loss = [], []
+            for t in range(T):
+                if ring_rung:
+                    x, y = xs_d[t], ys_d[t]
+                else:
+                    (x, y), _ = self._upload([xs_host[t], ys_host[t]])
+                cp, co, a, l = self._client_step_rows(cp, co, x, y)
+                acts.append(a)
+                loss.append(l)
+            losses[:, rows[0]:rows[-1] + 1] = torch.stack(loss)
+            if ci + 1 < len(starts):
+                ring.append(stage(starts[ci + 1]))
+            host = to_host({"acts": torch.stack(acts), "cp": cp,
+                            "co": co})                    # the one sync
+            if acts_h is None:
+                a0 = host["acts"]
+                acts_h = torch.empty((T, n) + tuple(a0.shape[2:]),
+                                     dtype=a0.dtype, pin_memory=pin)
+                ys_h = torch.empty((T, n) + tuple(ys_host.shape[2:]),
+                                   dtype=ys_host.dtype, pin_memory=pin)
+            acts_h[:, rows[0]:rows[-1] + 1] = host["acts"]
+            ys_h[:, rows[0]:rows[-1] + 1] = ys_host
+            self.store.scatter(rows, {"cp": host["cp"], "co": host["co"]})
+        return acts_h, ys_h, losses
+
+    def _stream_one_round(self, ucb, t_base: int, iters, T: int,
+                          global_phase: bool):
+        """One streamed round over the client store, as two passes that
+        commute exactly with the resident interleaving (client steps
+        never read what global steps write; the ``server_grad_to_client``
+        ablation, which breaks this, falls back to resident at init).
+
+        Pass A (:meth:`_client_pass`) runs every client's T steps chunk
+        by chunk.  Pass B replays the round's global iterations on the
+        spilled activations: each selects FIRST on the device-resident
+        bandit state (``Orchestrator.select_on``), reads the selection,
+        gathers only the S selected clients' mask and mask-Adam rows and
+        activations, runs ``global_step`` and scatters the rows back;
+        ``Orchestrator.update_on`` updates the bandit state.
+
+        Host syncs, on the card: ceil(C / stream_chunk) in pass A (one
+        per chunk: its activation spill and row scatter) and 2T in pass B
+        (per iteration the selection read and the mask rows' scatter);
+        the round's one fetch (the epoch's, on the epoch rung) is the
+        caller's.  Nothing else waits for the device.
+
+        Returns (bandit state, summed mean client loss on the device,
+        host selections (T, k) and device (T, k) CE losses and nnz
+        fractions, or None in a local round); bills nothing."""
+        acts_h, ys_h, losses = self._client_pass(iters, T)
+        closs = torch.zeros((), device=self.device)
+        for t in range(T):
+            closs = closs + losses[t].mean()
+        if not global_phase:
+            return ucb, closs, None
+        pin = self.device.type == "cuda"
+
+        def rows_of(h, idx):
+            out = torch.empty((len(idx),) + tuple(h.shape[1:]),
+                              dtype=h.dtype, pin_memory=pin)
+            return torch.index_select(h, 0, idx, out=out)
+
+        idx_l, ces_l, fracs_l = [], [], []
+        for t in range(T):
+            idx = self.orch.select_on(ucb, t_base + t)
+            idx_h = idx.cpu()                 # the selection read (a sync)
+            sel = self._put({"rows": self.store.gather(idx_h.numpy(),
+                                                       ("m", "mo")),
+                             "acts": rows_of(acts_h[t], idx_h),
+                             "ys": rows_of(ys_h[t], idx_h)})
+            m_sel, mo_sel, ces, fracs = self.global_step(
+                sel["rows"]["m"], sel["rows"]["mo"], sel["acts"], sel["ys"])
+            ucb = self.orch.update_on(ucb, idx, ces)
+            self.store.scatter(idx_h.numpy(), {"m": m_sel, "mo": mo_sel})
+            idx_l.append(idx_h.numpy())
+            ces_l.append(ces)
+            fracs_l.append(fracs)
+        return ucb, closs, (np.stack(idx_l), torch.stack(ces_l),
+                            torch.stack(fracs_l))
+
+    def _run_round_streamed(self, iters, T: int, global_phase: bool):
+        """The streamed counterpart of ``_run_round_scan`` on the eager or
+        round rung: the same ``ingest_round`` arguments, so the protocol
+        channels bill as the resident rungs do, and the store's traffic
+        added on ``host_device_bytes``; one fetch in a global round, none
+        in a local one -> (summed client loss, CE losses or None)."""
+        if T == 0:
+            return 0.0, None
+        ucb, closs, outs = self._stream_one_round(
+            self.orch.state, self.orch._n_selects, iters, T, global_phase)
+        return self._close_round(T, global_phase, ucb, closs, outs,
+                                 self._stream_store_bytes(T, global_phase))
+
+    def _run_epoch_streamed(self, R: int, T: int, global_phase: bool,
+                            make_round):
+        """The streamed counterpart of ``_run_epoch_scan``: R streamed
+        rounds (``make_round()`` draws each one's batches) with
+        ``ucb_new_round`` applied on the device at each boundary, one
+        fetch at the end of a global epoch, billed by one
+        ``ingest_epoch`` -> (per-round (client loss, CE losses),
+        cumulative meter summaries)."""
+        ucb, base = self.orch.state, self.orch._n_selects
+        closs, outs = [], []
+        for r in range(R):
+            ucb = ucb_new_round(ucb, gamma=self.hp.gamma)
+            ucb, cl, out = self._stream_one_round(ucb, base + r * T,
+                                                  make_round(), T,
+                                                  global_phase)
+            closs.append(cl)
+            outs.append(out)
+        if global_phase:
+            outs = (np.stack([o[0] for o in outs]),
+                    torch.stack([o[1] for o in outs]),
+                    torch.stack([o[2] for o in outs]))
+        return self._close_epoch(R, T, global_phase, ucb, closs, outs,
+                                 self._stream_store_bytes(T, global_phase))
 
     # ------------------------------------------------------------------
     def _record(self, r: int, global_phase: bool, T: int, closs, ces,
@@ -759,11 +1119,12 @@ class AdaSplitTrainer:
         hp = self.hp
         # the per-client loop runs on the eager rung whatever the rungs'
         # flags say, as in the reference
-        resident = hp.round_scan and hp.global_batch
-        if resident and hp.epoch_scan:
+        batched = hp.round_scan and hp.global_batch
+        if batched and hp.epoch_scan:
             return self._train_epoch_scan(eval_every)
         local_rounds = int(round(hp.kappa * hp.rounds))
-        run_round = (self._run_round_scan if resident
+        run_round = (self._run_round_streamed if self._streamed
+                     else self._run_round_scan if batched
                      else self._run_round_eager)
         for r in range(hp.rounds):
             global_phase = r >= local_rounds
@@ -811,6 +1172,9 @@ class AdaSplitTrainer:
                     self.orch.new_round()
                 results = [(0.0, None)] * R
                 summaries = [self.meter.summary()] * R
+            elif self._streamed:
+                results, summaries = self._run_epoch_streamed(
+                    R, T, global_phase, make_round)
             else:
                 results, summaries = self._run_epoch_scan(
                     [make_round] * R, T, global_phase)
@@ -826,21 +1190,20 @@ class AdaSplitTrainer:
     @torch.no_grad()
     def _eval_logits(self, client_params, masks, xs):
         """Logits of every client on its own test inputs, stacked."""
-        hp, cfg = self.hp, self.cfg
-        acts = lenet.client_forward(cfg, client_params, xs,
-                                    fused_epilogue=hp.fused_epilogue)
+        hp, cfg, kw = self.hp, self.cfg, self._fwd_kw
+        acts = lenet.client_forward(cfg, client_params, xs, **kw)
         if hp.mask_mode == "per_scalar":
             eff = masks_mod.apply_scalar_masks(self.server_params, masks)
-            logits, _ = lenet.server_forward(cfg, eff, acts,
-                                             fused_epilogue=hp.fused_epilogue)
+            logits, _ = lenet.server_forward(cfg, eff, acts, **kw)
         else:
             logits, _ = lenet.server_forward(cfg, self.server_params, acts,
-                                             gates=masks,
-                                             fused_epilogue=hp.fused_epilogue)
+                                             gates=masks, **kw)
         return logits
 
     def client_accuracies(self) -> np.ndarray:
         """(C,) per-client test accuracy in [0, 1]."""
+        if self._streamed:
+            return self._client_accuracies_streamed()
         shapes = {cd.test_x.shape for cd in self.clients}
         if len(shapes) == 1:
             xs = torch.from_numpy(np.stack(
@@ -858,6 +1221,23 @@ class AdaSplitTrainer:
                 masks_mod.gather_clients(self.client_params, row),
                 masks_mod.gather_clients(self.masks, row), xs), ys)[0]))
         return np.asarray(accs, np.float32)
+
+    def _client_accuracies_streamed(self) -> np.ndarray:
+        """:meth:`client_accuracies` over the client store: its towers and
+        masks go up ``stream_chunk`` rows at a time (one row at a time
+        where the test sets differ in size)."""
+        same = len({cd.test_x.shape for cd in self.clients}) == 1
+        step = self._stream_chunk if same else 1
+        accs = []
+        for i0 in range(0, self.n, step):
+            rows = np.arange(i0, min(self.n, i0 + step))
+            g = self._put(self.store.gather(rows, ("cp", "m")))
+            xs, ys = (torch.from_numpy(np.stack(
+                [getattr(self.clients[i], f) for i in rows])).to(self.device)
+                for f in ("test_x", "test_y"))
+            accs.append(accuracy(self._eval_logits(g["cp"]["c"], g["m"], xs),
+                                 ys))
+        return torch.cat(accs).cpu().numpy()
 
     def evaluate(self) -> float:
         return 100.0 * float(np.mean(self.client_accuracies()))

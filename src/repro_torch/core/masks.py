@@ -15,10 +15,11 @@ zeros.  All trees are stacked with a leading client axis.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.models.transformer import Segment, model_plan
-from repro_torch.weights import tree_leaves, tree_map
+from repro_torch.weights import to_host, tree_leaves, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +157,54 @@ def scatter_clients(tree, idx, new):
     ``idx`` replaced by ``new``'s (S, ...) leaves."""
     return tree_map(lambda l, n: l.index_copy(0, idx, n.to(l.dtype)),
                     tree, new)
+
+
+def host_gather_clients(tree, idx, *, pin: bool = False):
+    """Host-side :func:`gather_clients`: leaves are CPU tensors or numpy
+    arrays (``np.memmap`` disk views included), ``idx`` host ids; the
+    result is a dense (S, ...) CPU tensor per leaf, written straight into
+    page-locked memory when ``pin`` (the source of a non-blocking
+    upload; a fancy index of a pinned tensor would land in pageable
+    memory).  Only the requested rows are read: the O(k) contract of the
+    streamed client store."""
+    idx = np.asarray(idx, np.int64)
+    tidx = torch.from_numpy(idx)
+
+    def take(l):
+        shape = (len(idx),) + tuple(l.shape[1:])
+        if torch.is_tensor(l):
+            out = torch.empty(shape, dtype=l.dtype, pin_memory=pin)
+            return torch.index_select(l, 0, tidx, out=out)
+        dtype = torch.from_numpy(np.empty(0, l.dtype)).dtype
+        out = torch.empty(shape, dtype=dtype, pin_memory=pin)
+        np.take(l, idx, axis=0, out=out.numpy())
+        return out
+    return tree_map(take, tree)
+
+
+def host_scatter_clients(tree, idx, new):
+    """Host-side :func:`scatter_clients`: writes the (S, ...) rows of
+    ``new`` into the leaves of ``tree`` (CPU tensors or numpy/memmap
+    arrays) IN PLACE, cast to each leaf's dtype.  ``new`` may hold CUDA
+    tensors (the stream's device->host edge: ``weights.to_host``, one
+    sync)
+    and may be a subtree: its structure is walked, so a group can be
+    written a part at a time.  Returns ``tree``."""
+    idx = np.asarray(idx, np.int64)
+    tidx = torch.from_numpy(idx)
+
+    def put(src, dst):
+        if torch.is_tensor(dst):
+            src = torch.as_tensor(src)
+            dst.index_copy_(0, tidx, src.to(dst.dtype))
+            return
+        if torch.is_tensor(src):
+            src = (src.contiguous().view(torch.int16).numpy().view(np.uint16)
+                   if src.dtype == torch.bfloat16      # disk view: the bits
+                   else src.numpy())
+        dst[idx] = src
+    tree_map(put, to_host(new), tree)
+    return tree
 
 
 def binarize(masks, threshold: float = 0.05):

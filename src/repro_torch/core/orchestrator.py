@@ -87,6 +87,17 @@ def ucb_update(state: dict, sel_mask, losses, *, gamma: float) -> dict:
             "t": state["t"] + 1}
 
 
+def ucb_update_selected(state: dict, idx, losses, *, n: int,
+                        gamma: float) -> dict:
+    """:func:`ucb_update` from a (k,) selection and its (k,) losses,
+    scattered into the dense (N,) flags and losses on the device, as
+    the rungs' device iteration does."""
+    zeros = torch.zeros((n,), device=idx.device)
+    sel = zeros.index_fill(0, idx, 1.0)
+    dense = zeros.index_copy(0, idx, losses.to(torch.float32))
+    return ucb_update(state, sel, dense, gamma=gamma)
+
+
 def ucb_new_round(state: dict, *, gamma: float) -> dict:
     """Reset per-round history to L=[last, last], S=[1, 1] (T=2)."""
     last = state["last"]
@@ -141,6 +152,26 @@ class Orchestrator:
             return torch.tensor(np.asarray(j), dtype=torch.float32)
         rows = [row(self.jitter(counter + t, self.n)) for t in range(T)]
         return torch.stack(rows) if rows else torch.zeros((0, self.n))
+
+    def select_on(self, state: dict, counter: int) -> torch.Tensor:
+        """The selection on an explicit (device) bandit state with the
+        jitter row of select counter ``counter`` (from this
+        orchestrator's source, an injected one included), WITHOUT
+        advancing ``_n_selects``: the streamed round selects ahead of
+        staging the selected rows, and ``ingest_round`` advances the
+        counter for the whole round.  On the card the jitter row goes up
+        from page-locked memory without blocking."""
+        jit = self.jitter_schedule(counter, 1)[0]
+        if self.device.type == "cuda":
+            jit = jit.pin_memory().to(self.device, non_blocking=True)
+        return ucb_select(state, self.k, jit)
+
+    def update_on(self, state: dict, idx, losses) -> dict:
+        """:meth:`update` on an explicit (device) state from a (k,)
+        selection and its losses, both on the device; the histories are
+        replayed later by ``ingest_round``."""
+        return ucb_update_selected(state, idx, losses, n=self.n,
+                                   gamma=self.gamma)
 
     def advantage(self) -> np.ndarray:
         """Eq. 6 from the full history (one discount matvec): a

@@ -277,6 +277,27 @@ def client_conv(x, w, *, bias=None, fused_epilogue: bool = False):
     return out.reshape(out_shape)
 
 
+def conv_reference(x, w):
+    """The same conv as one library call, ``F.conv2d`` (the reference's
+    ``batched_conv=False`` path, ``_conv_reference`` /
+    ``lax.conv_general_dilated``): stacked x (C, B, H, W, Cin) with w
+    (C, K, K, Cin, Cout) as one grouped conv (``groups=C``), or
+    unstacked (..., H, W, Cin) with w (K, K, Cin, Cout).  No kernel of
+    this module runs."""
+    k, cin, cout = w.shape[-4], w.shape[-2], w.shape[-1]
+    h, wd = x.shape[-3], x.shape[-2]
+    if w.ndim == 5:
+        C, B = x.shape[:2]
+        xin = x.permute(1, 0, 4, 2, 3).reshape(B, C * cin, h, wd)
+        win = w.permute(0, 4, 3, 1, 2).reshape(C * cout, cin, k, k)
+        y = F.conv2d(xin, win, padding=k // 2, groups=C)
+        return y.reshape(B, C, cout, h, wd).permute(1, 0, 3, 4, 2)
+    lead = tuple(x.shape[:-3])
+    xin = x.reshape((-1, h, wd, cin)).permute(0, 3, 1, 2)
+    y = F.conv2d(xin, w.permute(3, 2, 0, 1), padding=k // 2)
+    return y.permute(0, 2, 3, 1).reshape(lead + (h, wd, cout))
+
+
 # ---------------------------------------------------------------------------
 # stacked projection head
 # ---------------------------------------------------------------------------

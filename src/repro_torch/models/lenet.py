@@ -3,9 +3,11 @@ client/server split (port of ``repro.models.lenet``).
 
 Each conv block = 5x5 "same" conv + ReLU + 2x2 VALID maxpool, over NHWC
 activations with HWIO filters.  Every conv goes through
-``kernels.client_conv`` (the panel-GEMM kernel on the card).  Params are
-nested dicts of tensors, client axis optional: stacked ``(C, ...)``
-leaves take ``(C, B, H, W, Cin)`` inputs and run as one batched GEMM.
+``kernels.client_conv`` (the panel-GEMM kernel on the card), or with
+``batched_conv=False`` through the library conv ``conv_reference``.
+Params are nested dicts of tensors, client axis optional: stacked
+``(C, ...)`` leaves take ``(C, B, H, W, Cin)`` inputs and run as one
+batched GEMM.
 Server unit gates act on conv output channels and FC hidden units; each
 gate leaf is ``(U,)`` (one client, shared across the batch), ``(B, U)``
 (per example), or stacked ``(C, U)`` against ``(C, B, ...)`` inputs.
@@ -16,7 +18,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.client_conv import broadcast_bias, client_conv
+from repro_torch.kernels.client_conv import (broadcast_bias, client_conv,
+                                             conv_reference)
 
 
 def _conv_init(gen, cin, cout, k=5):
@@ -47,10 +50,16 @@ def maxpool2x2(y):
     return y.reshape(lead + (h, w, c, 4)).max(dim=-1).values
 
 
-def _conv_block(p, x, gate=None, *, fused_epilogue=False):
-    """One conv+ReLU+maxpool block, client axis optional."""
+def _conv_block(p, x, gate=None, *, fused_epilogue=False, batched_conv=True):
+    """One conv+ReLU+maxpool block, client axis optional.
+    ``batched_conv=False`` takes the library conv (``conv_reference``)
+    with the bias and ReLU as plain ops, fused epilogue or not, as the
+    reference's ``batched_conv=False`` does."""
     w = p["w"].to(x.dtype)
-    if fused_epilogue:
+    if not batched_conv:
+        y = torch.relu(conv_reference(x, w)
+                       + broadcast_bias(p["b"]).to(x.dtype))
+    elif fused_epilogue:
         y = client_conv(x, w, bias=p["b"], fused_epilogue=True)
     else:
         y = torch.relu(client_conv(x, w) + broadcast_bias(p["b"]).to(x.dtype))
@@ -99,23 +108,27 @@ def init_params(cfg, gen: torch.Generator):
             "server": init_server_params(cfg, gen)}
 
 
-def client_forward(cfg, p, images, *, fused_epilogue=False):
+def client_forward(cfg, p, images, *, fused_epilogue=False,
+                   batched_conv=True):
     """Client tower: images (B, H, W, 3) unstacked, or (C, B, H, W, 3)
     with (C, ...)-leading params.  Returns the split activations."""
     x = images.to(torch.float32)
     for bp in p["blocks"]:
-        x = _conv_block(bp, x, fused_epilogue=fused_epilogue)
+        x = _conv_block(bp, x, fused_epilogue=fused_epilogue,
+                        batched_conv=batched_conv)
     return x
 
 
-def server_forward(cfg, p, acts, *, gates=None, fused_epilogue=False):
+def server_forward(cfg, p, acts, *, gates=None, fused_epilogue=False,
+                   batched_conv=True):
     """Server blocks + FC head -> (float32 logits, 0).  Stacked params
     (per-client effective weights, ``(S, ...)`` leaves) take stacked
     acts ``(S, B, H, W, C)``; gates as in the module docstring."""
     x = acts
     for i, bp in enumerate(p["blocks"]):
         g = gates["blocks"][i] if gates is not None else None
-        x = _conv_block(bp, x, gate=g, fused_epilogue=fused_epilogue)
+        x = _conv_block(bp, x, gate=g, fused_epilogue=fused_epilogue,
+                        batched_conv=batched_conv)
     x = x.reshape(tuple(x.shape[:-3]) + (-1,))
 
     def fc(pp, x, gate, act=True):

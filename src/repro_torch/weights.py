@@ -66,6 +66,25 @@ def to_numpy(tree):
         tree)
 
 
+def to_host(tree):
+    """CPU copies of a tree's CUDA tensor leaves (other leaves as they
+    are): each copied without blocking into page-locked memory, then ONE
+    stream sync for the whole tree."""
+    leaves = tree_leaves(tree)
+    cuda = [l for l in leaves if torch.is_tensor(l) and l.is_cuda]
+    if not cuda:
+        return tree
+    out = []
+    for l in leaves:
+        if torch.is_tensor(l) and l.is_cuda:
+            h = torch.empty(l.shape, dtype=l.dtype, pin_memory=True)
+            h.copy_(l, non_blocking=True)
+            l = h
+        out.append(l)
+    torch.cuda.current_stream(cuda[0].device).synchronize()
+    return tree_unflatten(tree, out)
+
+
 def strict_fp32():
     """Full-fp32 matrix products and convolutions on the card: no TF32
     (which keeps ~3 decimal digits) anywhere, so the port's numbers are

@@ -202,6 +202,49 @@ def test_free_running_two_rounds_match(pair):
         <= 100.0 / n_test + 1e-4
 
 
+# a five-block reduced LeNet, so that mu 0.2 / 0.5 / 0.75 split after
+# conv blocks 1 / 2 / 4, as at full width
+FIVE = dict(image_size=32, conv_channels=(4, 8, 8, 8, 8))
+
+
+@pytest.mark.parametrize("mu,split", [(0.2, 1), (0.5, 2), (0.75, 4)])
+def test_free_running_two_rounds_match_at_split_points(mu, split):
+    """Split points 1, 2 and 4: one local and one global round from the
+    reference's state, its jitter injected: equal selections, CE within
+    1e-3 relative, exact meters, state within the Adam sign-flip
+    bound."""
+    from repro.models import lenet as jlenet
+    from repro_torch.models import lenet as tlenet
+    ref_clients = mixed_noniid(n_clients=3, n_per_client=32, n_test=16,
+                               seed=0)
+    port_clients = [ClientData(c.x, c.y, c.test_x, c.test_y, c.dataset_id)
+                    for c in ref_clients]
+    jcfg = dataclasses.replace(jget_config("lenet-cifar"), mu=mu, **FIVE)
+    tcfg = dataclasses.replace(tget_config("lenet-cifar"), mu=mu, **FIVE)
+    assert jlenet.split_index(jcfg) == tlenet.split_index(tcfg) == split
+    ref = JTrainer(jcfg, JHParams(round_scan=False, **COMMON), ref_clients)
+
+    def jitter(counter, n):
+        return np.asarray(jax.random.uniform(
+            ref.orch.select_key(counter), (n,), jnp.float32, 0.0, 1.0))
+
+    port = TTrainer(tcfg, THParams(round_scan=False, **COMMON),
+                    port_clients, device="cpu", jitter=jitter)
+    port.set_state(_ref_state(ref))
+    ref_log, port_log = _log_updates(ref.orch), _log_updates(port.orch)
+    ref.train(eval_every=2)
+    port.train(eval_every=2)
+    assert len(port_log) == len(ref_log) == 4
+    for (s_p, ce_p), (s_r, ce_r) in zip(port_log, ref_log):
+        np.testing.assert_array_equal(s_p, s_r)
+        np.testing.assert_allclose(ce_p, ce_r, rtol=1e-3)
+    _meter_equal(port.meter, ref.meter)
+    got, want = port.get_state(), _ref_state(ref)
+    for k in want:
+        if k != "ucb":
+            _state_close(got[k], want[k])
+
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -210,7 +253,7 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'msgpack'))
 serving = ['configs.qwen2_0_5b', 'models.layers', 'models.mlp',
            'models.attention', 'models.transformer', 'models.decode',
            'kernels.flash_attention', 'launch', 'launch.steps',
@@ -219,7 +262,8 @@ serving = ['configs.qwen2_0_5b', 'models.layers', 'models.mlp',
            'baselines.base', 'baselines.fed', 'baselines.split', 'utils',
            'utils.tree',
            'optim.sgd', 'optim.schedules', 'data.partition',
-           'launch.compare']
+           'launch.compare', 'checkpoint', 'checkpoint.io',
+           'core.client_store']
 missing = [m for m in serving if 'repro_torch.' + m not in mods]
 assert len(mods) >= 43 and not missing, (mods, missing)
 assert not bad, bad
@@ -241,8 +285,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
              for a in n.names]
     names += [n.module or "" for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom)]
-    assert not [n for n in names
-                if n.split(".")[0] in ("jax", "jaxlib", "repro")], names
+    assert not [n for n in names if n.split(".")[0]
+                in ("jax", "jaxlib", "repro", "msgpack")], names
 
 
 def test_evaluate_with_ragged_test_sets_matches_stacked(pair):

@@ -831,3 +831,92 @@ def test_joint_client_adam_at_s_rows_bit_equal_to_plain(cuda):
     for a, b in zip(got, want):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# streamed residency and the library conv on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", ["host", "disk"])
+def test_store_gathers_pinned_and_round_trips_cuda_rows(cuda, backend,
+                                                        tmp_path):
+    """On the card the stores gather into page-locked staging (the source
+    of a non-blocking upload), and CUDA rows scattered back come out
+    bit-equal, untouched rows intact."""
+    from repro_torch.core.client_store import make_store
+    c = 9
+    gen = torch.Generator().manual_seed(4)
+    tree = {"w": torch.randn((c, 5, 3), generator=gen),
+            "step": torch.arange(c, dtype=torch.int32)}
+    store = make_store(backend, c, directory=str(tmp_path / "s"), pin=True)
+    store.adopt({"g": tree})
+    rows = np.asarray([7, 1, 4])
+    got = store.gather(rows, ("g",))["g"]
+    assert all(l.is_pinned() for l in tree_leaves(got))
+    dev = {k: v.to(cuda, non_blocking=True) for k, v in got.items()}
+    new = {"w": dev["w"] * 2 + 1, "step": dev["step"] + 3}
+    store.scatter(rows, {"g": new})
+    back = store.gather(np.arange(c), ("g",))["g"]
+    for k in tree:
+        want = tree[k].clone()
+        want[torch.from_numpy(rows)] = new[k].cpu()
+        assert torch.equal(back[k], want), k
+
+
+@pytest.mark.parametrize("rung", [dict(), dict(epoch_scan=True)],
+                         ids=["round", "epoch"])
+def test_streamed_run_on_card_selects_and_bills_as_resident(cuda, rung):
+    """A reduced streamed run (chunks of 3 of 4 clients, ragged) against
+    its resident twin on the card: equal selections and protocol meters,
+    host<->device bytes the resident bill plus the store's traffic, state
+    within the Adam sign-flip bound."""
+    cfg, clients = _small_lenet()
+    kw = dict(rounds=3, kappa=0.34, eta=0.5, batch_size=8, **rung)
+    runs = {}
+    for name, extra in (("resident", {}),
+                        ("streamed", dict(streamed=True, stream_chunk=3))):
+        tr = AdaSplitTrainer(cfg, AdaSplitHParams(**kw, **extra), clients,
+                             device="cuda")
+        log, ingest = [], tr.orch.ingest_round
+        tr.orch.ingest_round = lambda s, l, state=None, log=log, \
+            ingest=ingest: (log.extend(np.array(s)),
+                            ingest(s, l, state=state))
+        tr.train(eval_every=100)
+        runs[name] = (tr, log)
+    (res, r_log), (st, s_log) = runs["resident"], runs["streamed"]
+    assert st._streamed and len(s_log) == len(r_log) > 0
+    for a, b in zip(s_log, r_log):
+        np.testing.assert_array_equal(a, b)
+    for f in ("bandwidth_bytes", "client_flops", "server_flops"):
+        assert getattr(st.meter, f) == getattr(res.meter, f), f
+    T = min(len(c.x) for c in clients) // 8
+    n_local = int(round(kw["kappa"] * kw["rounds"]))
+    assert st.meter.host_device_bytes == res.meter.host_device_bytes + (
+        n_local * st._stream_store_bytes(T, False)
+        + (kw["rounds"] - n_local) * st._stream_store_bytes(T, True))
+    off = total = 0
+    for a, b in zip(tree_leaves(st.get_state()),
+                    tree_leaves(res.get_state())):
+        d = np.abs(a.astype(np.float64) - b)
+        assert d.max(initial=0.0) <= 2.5 * st.hp.lr * kw["rounds"] * T
+        off += int(np.sum(d > 1e-5 + 1e-4 * np.abs(b)))
+        total += d.size
+    assert off <= 1e-3 * total
+
+
+def test_conv_reference_on_card_makes_no_panel_gemm_launch(cuda):
+    """``batched_conv=False`` trains and evaluates through the library
+    conv alone: no launch of the panel-GEMM kernel, the Adam and NT-Xent
+    kernels as usual."""
+    cfg, clients = _small_lenet()
+    tr = AdaSplitTrainer(cfg, AdaSplitHParams(rounds=2, kappa=0.5, eta=0.5,
+                                              batch_size=8,
+                                              batched_conv=False),
+                         clients, device="cuda")
+    tcc.reset_launches()
+    tnt.reset_launches()
+    tr.train(eval_every=1)
+    torch.cuda.synchronize()
+    assert tcc.LAUNCHES == {"panel_gemm": 0, "panel_gemm_bias_relu": 0}
+    assert tnt.LAUNCHES["ntxent_stats"] > 0

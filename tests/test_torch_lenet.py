@@ -28,6 +28,12 @@ from repro_torch.weights import from_numpy, tree_leaves
 
 RNG = np.random.default_rng(5)
 SMALL = dict(image_size=16, conv_channels=(4, 8, 8))
+# lenet-cifar at full width, split after conv block 1 (mu 0.2, the
+# config's own), 2 (mu 0.5) and 4 (mu 0.75): the split points Table 3
+# sweeps
+SHAPES = [{}, SMALL, dict(mu=0.5), dict(mu=0.75)]
+SHAPE_IDS = ["lenet_cifar", "small", "lenet_cifar_mu0.5",
+             "lenet_cifar_mu0.75"]
 
 
 def _cfgs(**kw):
@@ -61,7 +67,13 @@ def test_configs_agree_with_reference():
     assert tlenet.split_index(tc) == jlenet.split_index(jc) == 1
 
 
-@pytest.mark.parametrize("kw", [{}, SMALL], ids=["lenet_cifar", "small"])
+def test_split_points_of_the_mu_cases():
+    for kw, split in zip(SHAPES[2:], (2, 4)):
+        jc, tc = _cfgs(**kw)
+        assert tlenet.split_index(tc) == jlenet.split_index(jc) == split
+
+
+@pytest.mark.parametrize("kw", SHAPES, ids=SHAPE_IDS)
 def test_client_forward_matches(kw):
     jc, tc = _cfgs(**kw)
     C, B = 2, 3
@@ -87,7 +99,7 @@ def test_client_forward_matches(kw):
 
 
 @pytest.mark.parametrize("gate_kind", ["none", "per_client", "per_example"])
-@pytest.mark.parametrize("kw", [{}, SMALL], ids=["lenet_cifar", "small"])
+@pytest.mark.parametrize("kw", SHAPES, ids=SHAPE_IDS)
 def test_server_forward_and_grads_match(gate_kind, kw):
     jc, tc = _cfgs(**kw)
     B = 4
