@@ -116,9 +116,25 @@ time:
    layer per prefill;
 8. Table 1 through ``launch/compare.py`` and the baselines card vs CPU
    (phase 8);
+8b. the AdaSplit LM trainer (``repro_torch.launch.train``) on
+   qwen2-0.5b at full width, all 24 layers (split after 5), bf16, C=4
+   cohorts, B=16, S=128, kappa 0.5, eta 0.6, 20 steps in windows of 10,
+   on the per-step and the windowed driver: NT-Xent at (4, 4, 64) and
+   client Adam over the LM's own trainables against their plain
+   versions first; each run under ``sync_debug_mode("error")`` lifted
+   only in its fetch (one fetch a window), finite losses, the phases
+   local then global, per step one NT-Xent forward and one backward, the
+   client Adam launches ``plan_launches`` predicts and no flash launch;
+   its wall ms per step, tokens/s and peak device memory, one steady
+   global window profiled (busy share); equal selections and losses
+   within ``LM_DRIVER_TOL`` across the drivers; a ``requires_grad`` q
+   refused by the flash wrapper; then 2 layers, strict fp32, 4 steps on
+   the card and the CPU (equal selections, losses within
+   ``LM_TRAIN_REL_TOL``);
 9. a ``kernels`` JSON line (all eight kernels; flash's launches those of
    every phase 7 and 7b run, its times the hd-64 session and FIFO
-   totals), then the final ``{"ok": true, ...}`` line.
+   totals; NT-Xent's and client Adam's launches include phase 8b's),
+   then the final ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the repository around it, and imports nothing
 of JAX or of the JAX package.
@@ -1691,7 +1707,9 @@ def kernel_api(cfg, tr, clients, hp):
 def profile_calls(fn, n, label, what, unit):
     """Device time by kernel over ``n`` calls of ``fn``, and the device's
     busy share of their wall time (torch.profiler; a session that
-    recorded none of its markers is taken again with more)."""
+    recorded none of its markers is taken again with more).  Returns the
+    wall and busy ms per call and the busy share (None when no device
+    time was recorded)."""
     import torch
     for n_markers in PROFILE_MARKERS:
         torch.cuda.synchronize()
@@ -1710,7 +1728,7 @@ def profile_calls(fn, n, label, what, unit):
     busy = sum(d[1] for d in dev)
     if not dev:
         print(f"  [{label}] profile: no device time recorded (not measured)")
-        return
+        return None
     print(f"  [{label}] profile over {n} {what}: wall "
           f"{wall_us / n / 1e3:.3f} ms/{unit}, device busy "
           f"{busy / n / 1e3:.3f} ms/{unit}, busy share {busy / wall_us:.4f}, "
@@ -1719,6 +1737,8 @@ def profile_calls(fn, n, label, what, unit):
     for key, us, count in sorted(dev, key=lambda d: -d[1])[:12]:
         print(f"    {us / n / 1e3:9.4f} ms/{unit} {count // n:5d} "
               f"calls/{unit}  {key[:90]}")
+    return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy / n / 1e3,
+            "busy_share": busy / wall_us}
 
 
 # ---------------------------------------------------------------------------
@@ -1838,6 +1858,293 @@ def baselines_on_two_devices(cfg):
         if not (worst <= tol and flips <= 1e-3 * total
                 and same_meter and acc_off <= 1.0 / 16 + 1e-6):
             raise AssertionError(f"[{name}] card and CPU rounds disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the AdaSplit LM trainer on qwen2-0.5b at full width
+# ---------------------------------------------------------------------------
+
+# all 24 layers (split after 5), bf16 params, C=4 cohorts (the reference
+# on a data axis of 4), B=16 (b=4 a cohort), S=128, kappa 0.5, eta 0.6
+# (k=2), 20 steps logged in windows of 10, on both drivers
+LM_TRAIN = {"cohorts": 4, "batch": 16, "seq": 128, "steps": 20,
+            "log_every": 10, "kappa": 0.5, "eta": 0.6, "seed": 0}
+# the two drivers on the card, bf16: the same steps on the same data, so
+# equal selections; l_client and CE within this relative distance (the
+# backward's accumulation order may differ run to run on the card)
+LM_DRIVER_TOL = 1e-2
+# card vs CPU: the same configuration at full width cut to 2 layers,
+# strict fp32, 4 steps (2 global): f32 sums in other orders, and Adam's
+# first steps move weights whose gradient is near eps by up to 2 lr on
+# one side only
+LM_TRAIN_TWO = {"n_layers": 2, "steps": 4}
+LM_PROFILED_WINDOW = 2
+LM_TRAIN_REL_TOL = 1e-3
+
+
+def lm_train_setup(cfg, dtype="bfloat16"):
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import LaunchPolicy
+    shape = InputShape("smoke_train", LM_TRAIN["seq"], LM_TRAIN["batch"],
+                       "train")
+    return shape, LaunchPolicy(param_dtype=dtype)
+
+
+def lm_trainer(cfg, shape, policy, device="cuda", **kw):
+    from repro_torch.launch.train import LMAdaSplitTrainer
+    return LMAdaSplitTrainer(cfg, shape, policy,
+                             n_cohorts=LM_TRAIN["cohorts"],
+                             kappa=LM_TRAIN["kappa"], eta=LM_TRAIN["eta"],
+                             seed=LM_TRAIN["seed"], device=device, **kw)
+
+
+def lm_step_launches(state):
+    """Launches one train step makes: NT-Xent forward and backward once,
+    client Adam as ``plan_launches`` splits the trainables, nothing
+    else."""
+    from repro_torch.kernels.masked_adam import plan_launches
+    from repro_torch.weights import tree_leaves
+    sizes = [t.numel() for t in tree_leaves(state["trainables"])]
+    return {"panel_gemm": 0, "panel_gemm_bias_relu": 0, "masked_adam": 0,
+            "client_adam": len(plan_launches(sizes)), "ntxent_stats": 1,
+            "ntxent_backward": 1, "soft_threshold": 0,
+            "flash_attention": 0}
+
+
+def check_lm_kernels(cfg, gen):
+    """The path's kernels at its shapes against their plain versions:
+    NT-Xent at (C, b, proj_dim) with one label a cohort (``check_ntxent``:
+    forward, backward, the loss gradient vs float64 CPU autograd), and
+    client Adam over the LM's own trainables (bf16 weights and
+    gradients, float32 moments) through ``adam_multi`` as the step
+    calls it, one launch per ``plan_launches`` group, bit-equal to
+    ``adam_multi_plain``; the Adam call's CUDA-event time and its peak
+    device memory."""
+    import types
+    import torch
+    from repro_torch.kernels import masked_adam as ma
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.weights import tree_leaves
+    shape, policy = lm_train_setup(cfg)
+    C = LM_TRAIN["cohorts"]
+    hp = types.SimpleNamespace(batch_size=LM_TRAIN["batch"] // C,
+                               proj_dim=policy.proj_dim, tau=policy.tau)
+    check_ntxent(types.SimpleNamespace(n_classes=1), hp, gen, C=C)
+    state = init_train_state(cfg, C, policy, 1, device="cuda")
+    params = tree_leaves(state["trainables"])
+    del state
+    leaves = []
+    for p in params:
+        g = torch.randn(p.shape, device="cuda", generator=gen).to(p.dtype)
+        mu = torch.randn(p.shape, device="cuda", generator=gen) * 1e-3
+        nu = torch.rand(p.shape, device="cuda", generator=gen) * 1e-6
+        leaves.append((p, g, mu, nu, None))
+    step = torch.tensor(3, dtype=torch.int32, device="cuda")
+    b1t, b2t = ma.bias_corrections(step, 0.9, 0.999)
+    kw = dict(lr=policy.lr, b1=0.9, b2=0.999, eps=1e-8, b1t=b1t, b2t=b2t)
+    plans = ma.plan_launches([p.numel() for p in params])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ma.reset_launches()
+    start.record()
+    outs = [ma.adam_multi([leaves[i] for i, _ in entries], client_order=True,
+                          **kw) for entries, _ in plans]
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if ma.LAUNCHES["client_adam"] != len(plans):
+        raise AssertionError(f"client Adam: {ma.LAUNCHES['client_adam']} "
+                             f"launches for {len(plans)} groups")
+    worst = 0.0
+    for (entries, _), got in zip(plans, outs):
+        for (i, _), o in zip(entries, got):
+            want = ma.adam_multi_plain([leaves[i]], client_order=True,
+                                       **kw)[0]
+            for a, b in zip(o, want):
+                worst = max(worst, float((a.float() - b.float()).abs().max()))
+                if not torch.equal(a, b):
+                    raise AssertionError(f"client Adam leaf {i} "
+                                         f"{tuple(a.shape)}: not bit-equal "
+                                         "to its plain version")
+            del want
+    n = sum(p.numel() for p in params)
+    print(f"  client_adam over the LM trainables ({len(params)} leaves, "
+          f"{n / 1e9:.3f} B elements, bf16 weights and gradients, {len(plans)}"
+          f" launch(es)): bit-equal to plain (max_abs_err {worst:.3e}); one "
+          f"call through adam_multi {ms:.2f} ms (CUDA events, bf16 staging "
+          f"included), its peak above its inputs {peak:.2f} GiB")
+    ma.reset_launches()
+
+
+def lm_train_run(cfg, epoch_scan):
+    """One 20-step run of ``LMAdaSplitTrainer`` on the card from the seed:
+    the run under ``set_sync_debug_mode("error")``, lifted only in the
+    trainer's fetch; its history, launches, fetches, wall time and peak
+    device memory, and the trainer."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    shape, policy = lm_train_setup(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = lm_trainer(cfg, shape, policy, epoch_scan=epoch_scan)
+    torch.cuda.synchronize()
+    print(f"  trainer construction (random init on the card): "
+          f"{time.perf_counter() - t0:.2f} s")
+    reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    fetches = fetches_under_sync_check(
+        tr, lambda: tr.run(LM_TRAIN["steps"], log_every=LM_TRAIN["log_every"]))
+    wall = time.perf_counter() - t0
+    counts = dict(read_launches(), **fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return tr, counts, fetches, wall, peak
+
+
+def check_lm_run(label, tr, counts, fetches, wall, peak):
+    import math as m
+    steps, W = LM_TRAIN["steps"], LM_TRAIN["log_every"]
+    hist = tr.history
+    n_local = int(round(LM_TRAIN["kappa"] * steps))
+    phases = [h["phase"] for h in hist]
+    want_launches = {k: v * steps for k, v in
+                     lm_step_launches(tr.state).items()}
+    got = {k: counts.get(k, 0) for k in want_launches}
+    finite = all(m.isfinite(h["ce"]) and m.isfinite(h["l_client"])
+                 for h in hist)
+    tokens = steps * LM_TRAIN["batch"] * LM_TRAIN["seq"]
+    print(f"  [{label}] {steps} steps: {wall:.2f} s wall from the trainer's "
+          f"construction's end ({wall / steps * 1e3:.1f} ms/step, "
+          f"{tokens / wall:.0f} tokens/s, cold); {fetches} fetch(es) under "
+          f"sync_debug_mode=error, no other host sync; peak "
+          f"max_memory_allocated {peak:.2f} GiB; launches {got}")
+    for h in hist[::5]:
+        print(f"    step {h['step']:2d} {h['phase']:6s} l_client="
+              f"{h['l_client']:.5f} ce={h['ce']:.5f} selected="
+              f"{h['selected']}")
+    if phases != ["local"] * n_local + ["global"] * (steps - n_local):
+        raise AssertionError(f"[{label}] phases {phases}")
+    if not finite:
+        raise AssertionError(f"[{label}] non-finite losses")
+    if fetches != -(-steps // W):
+        raise AssertionError(f"[{label}] {fetches} fetches")
+    if got != want_launches:
+        raise AssertionError(f"[{label}] launches {got}, want "
+                             f"{want_launches}")
+    if any(len(h["selected"]) != (tr.k if h["phase"] == "global" else 0)
+           for h in hist):
+        raise AssertionError(f"[{label}] selections of the wrong size")
+
+
+def lm_train_on_two_devices(cfg_full):
+    """The phase's configuration at full width cut to 2 layers, strict
+    fp32, 4 steps (2 global) on the card and on the CPU from the card's
+    initial state, with the same jitter: equal selections, l_client and
+    CE within LM_TRAIN_REL_TOL."""
+    import dataclasses
+    two = LM_TRAIN_TWO
+    cfg = dataclasses.replace(cfg_full, n_layers=two["n_layers"],
+                              dtype="float32")
+    shape, policy = lm_train_setup(cfg, "float32")
+    t0 = time.perf_counter()
+    gpu = lm_trainer(cfg, shape, policy)
+    cpu = lm_trainer(cfg, shape, policy, device="cpu", state=gpu.state)
+    print(f"  card and CPU trainers built, the CPU's from the card's "
+          f"state: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    gpu.run(two["steps"], log_every=two["steps"])
+    t1 = time.perf_counter()
+    cpu.run(two["steps"], log_every=two["steps"])
+    t2 = time.perf_counter()
+    worst, same = 0.0, True
+    for a, b in zip(gpu.history, cpu.history):
+        same &= a["selected"] == b["selected"] and a["phase"] == b["phase"]
+        for key in ("l_client", "ce"):
+            worst = max(worst, abs(a[key] - b[key]) / max(abs(b[key]), 1e-30))
+    print(f"  card vs CPU, {two['n_layers']} layers of width {cfg.d_model}, "
+          f"strict fp32, {two['steps']} steps "
+          f"({[h['phase'] for h in cpu.history]}): selections equal {same} "
+          f"({[h['selected'] for h in cpu.history]}); l_client and CE max "
+          f"rel diff {worst:.3e} (tol {LM_TRAIN_REL_TOL}); card "
+          f"{t1 - t0:.2f} s, CPU {t2 - t1:.2f} s")
+    if not (same and worst <= LM_TRAIN_REL_TOL):
+        raise AssertionError("LM trainer: card and CPU steps disagree")
+
+
+def check_flash_refuses_grad():
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn((1, 2, 64, 64), device="cuda", requires_grad=True)
+    k = torch.randn((1, 2, 64, 64), device="cuda")
+    try:
+        fa.flash_attention_cuda(q, k, k)
+    except ValueError as e:
+        print(f"  flash_attention_cuda on a q that requires grad: raises "
+              f"({e})")
+    else:
+        raise AssertionError("flash_attention_cuda took a q that requires "
+                             "grad")
+    with torch.no_grad():
+        fa.flash_attention_cuda(q, k, k)
+    fa.reset_launches()
+
+
+def lm_trainer_phase(gen):
+    """Phase 8b; returns the launches of the two 20-step runs."""
+    import torch
+    from repro_torch.configs.base import get_config
+    cfg = get_config(SERVE_ARCH)
+    print(f"  {SERVE_ARCH}: {cfg.n_layers} layers, split after "
+          f"{cfg.split_layer}, C={LM_TRAIN['cohorts']} B={LM_TRAIN['batch']}"
+          f" S={LM_TRAIN['seq']}, bf16 params")
+    t0 = time.perf_counter()
+    check_lm_kernels(cfg, gen)
+    torch.cuda.empty_cache()
+    print(f"  kernels at the path's shapes: {time.perf_counter() - t0:.2f} s")
+    check_flash_refuses_grad()
+    runs, launches = {}, {}
+    for label, epoch_scan in (("per-step", False), ("windowed", True)):
+        tr, counts, fetches, wall, peak = lm_train_run(cfg, epoch_scan)
+        check_lm_run(label, tr, counts, fetches, wall, peak)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        runs[label] = list(tr.history)
+        if label == "per-step":
+            # one steady window of global steps, profiled (its ~12,000
+            # device ops a step take the profiler long to sum, so the
+            # window is short)
+            W = LM_PROFILED_WINDOW
+            t0 = time.perf_counter()
+            prof = profile_calls(lambda: tr.run(W, local_frac=0.0,
+                                                log_every=W),
+                                 1, "lm_train", "windows", "window")
+            if prof:
+                tokens = W * LM_TRAIN["batch"] * LM_TRAIN["seq"]
+                print(f"  [per-step] steady global window of {W} steps, "
+                      f"profiled: {prof['wall_ms'] / W:.2f} ms/step, "
+                      f"{tokens / prof['wall_ms'] * 1e3:.0f} tokens/s, "
+                      f"device busy {prof['busy_ms'] / W:.2f} ms/step, "
+                      f"share {prof['busy_share']:.4f} (profile taken and "
+                      f"read in {time.perf_counter() - t0:.2f} s)")
+        del tr
+        torch.cuda.empty_cache()
+    a, b = runs["per-step"], runs["windowed"]
+    same_sel = [h["selected"] for h in a] == [h["selected"] for h in b]
+    rel = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+              for x, y in zip(a, b) for k in ("l_client", "ce"))
+    bit = all(x["l_client"] == y["l_client"] and x["ce"] == y["ce"]
+              for x, y in zip(a, b))
+    print(f"  per-step vs windowed driver: selections equal {same_sel}; "
+          f"l_client and CE max rel diff {rel:.3e} (tol {LM_DRIVER_TOL}); "
+          f"bit-equal {bit}")
+    if not (same_sel and rel <= LM_DRIVER_TOL):
+        raise AssertionError("LM trainer: the two drivers disagree")
+    lm_train_on_two_devices(cfg)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2788,6 +3095,14 @@ def main() -> int:
     compare_methods(cfg)
     baselines_on_two_devices(cfg)
     phase_done(8)
+
+    # phase 8b --------------------------------------------------------
+    print(f"phase 8b: the AdaSplit LM trainer on {SERVE_ARCH} at full "
+          "width, both drivers, and card vs CPU at 2 layers")
+    lm_launches = lm_trainer_phase(gen)
+    for k in ("ntxent_stats", "ntxent_backward", "client_adam"):
+        launches[k] += lm_launches[k]
+    phase_done("8b")
 
     zero = [k for k, v in launches.items() if v == 0]
     if zero:

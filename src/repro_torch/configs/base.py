@@ -1,11 +1,12 @@
 """Config system of the port: the ``ModelConfig`` fields the LeNet path
 and the dense decoder-only LM path read, and the registry.
 
-A copy of the reference's ``configs/base.py`` cut to the conv backbone
-and the dense LM stack: the M-RoPE, SSM, MoE-capacity and
-encoder-decoder fields and branches are left out (their slices bring
-them), in ``param_count`` too.  ``n_experts`` and ``attn_layer_period``
-stay at 0 on every registered config and only keep
+A copy of the reference's ``configs/base.py`` cut to ``InputShape``,
+the conv backbone and the dense LM stack: the M-RoPE, SSM, MoE-capacity
+and encoder-decoder fields and branches are left out (their slices
+bring them), in ``param_count`` too; so is the table of the assigned
+input shapes, which only the dry run reads.  ``n_experts`` and
+``attn_layer_period`` stay at 0 on every registered config and only keep
 ``is_moe_layer``/``is_attn_layer`` and ``split_layer`` the reference's
 functions.
 """
@@ -14,6 +15,23 @@ from __future__ import annotations
 import importlib
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Tuple
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+# Sliding window of full-attention archs in the long_500k decode variant
+LONG_CONTEXT_WINDOW = 8_192
 
 
 @dataclass(frozen=True)

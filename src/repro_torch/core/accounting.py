@@ -2,8 +2,8 @@
 (communication, eq. 2) meters.
 
 A copy of the reference's ``core/accounting.py`` (numpy only), cut to
-what the LeNet trainer bills; the transformer FLOP models arrive with
-the LM slice.
+what the LeNet and the LM trainers bill (the dense, decoder-only
+branches of the transformer FLOP models).
 
 Bandwidth counts actual payload bytes crossing the client<->server
 boundary (activations + labels up, gradients down when applicable).
@@ -80,6 +80,35 @@ def lenet_flops_per_example(cfg: ModelConfig, part: str = "full") -> float:
                       + cfg.d_model * cfg.n_classes)
     return {"client": fl_client, "server": fl_server,
             "full": fl_client + fl_server}[part]
+
+
+def transformer_matmul_params(cfg: ModelConfig, part: str = "full") -> float:
+    """Matmul weights touched per token (the embedding rows are gathered,
+    not multiplied; the LM head is server-side)."""
+    full = cfg.active_param_count()
+    emb = cfg.padded_vocab() * cfg.d_model
+    body = full - 2 * emb if not cfg.is_conv else full
+    frac_client = cfg.split_layer / max(cfg.n_layers, 1)
+    cl = body * frac_client
+    sv = body - cl + emb  # head matmul is server-side
+    return {"client": cl, "server": sv, "full": cl + sv}[part]
+
+
+def transformer_flops_per_token(cfg: ModelConfig, part: str = "full",
+                                seq_len: int = 0) -> float:
+    """Forward FLOPs per token: 2 x the matmul weights, plus the attention
+    score/value term at ``seq_len``, split by layer ownership."""
+    f = 2.0 * transformer_matmul_params(cfg, part)
+    if seq_len and not cfg.is_conv:
+        n_attn = sum(1 for i in range(cfg.n_layers) if
+                     (cfg.n_heads and cfg.is_attn_layer(i)))
+        att = 4.0 * seq_len * cfg.n_heads * cfg.head_dim * n_attn
+        if part == "client":
+            att *= cfg.split_layer / max(cfg.n_layers, 1)
+        elif part == "server":
+            att *= 1 - cfg.split_layer / max(cfg.n_layers, 1)
+        f += att
+    return f
 
 
 @dataclass

@@ -5,11 +5,13 @@
 projections give ``(C,)`` per-client losses in one pass.  It is the
 plain form of the loss and the tests' oracle; the trainer's client step
 computes the same loss through the NT-Xent kernel
-(``kernels.ntxent.ntxent_loss``).
+(``kernels.ntxent.ntxent_loss``).  ``chunked_cross_entropy`` is the LM
+trainer's token CE.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.weights import tree_leaves
 
@@ -47,6 +49,46 @@ def cross_entropy(logits, targets):
     """Classification CE: logits (..., V), targets (...,) int; mean over
     every position."""
     return token_nll(logits, targets).mean()
+
+
+def _chunk_nll(h, y, w, table, pad_bias):
+    """Weighted sum of one chunk's token NLL: h (B, c, D), y and w (B, c)."""
+    logits = torch.einsum("bsd,vd->bsv", h.to(torch.float32),
+                          table.to(torch.float32)) + pad_bias
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    return ((lse - gold) * w.to(torch.float32)).sum()
+
+
+def chunked_cross_entropy(hidden, table, labels, vocab_size: int,
+                          chunk: int = 512, weights=None):
+    """Token CE without materialising (B, S, Vpad) logits.
+
+    hidden: (B, S, D) final hidden states; table: (Vpad, D) lm_head;
+    labels: (B, S) int; weights: optional (B, S) per-token weights
+    (AdaSplit cohort selection).  Runs over sequence chunks (halved
+    until one divides S); each chunk's logits are recomputed in the
+    backward pass (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``), so the peak is one (B, chunk, Vpad) float32
+    block.  Padded vocab rows leave the logsumexp through a -1e9 bias.
+    Returns sum(nll * w) / max(sum(w), 1e-8)."""
+    B, S, D = hidden.shape
+    Vp = table.shape[0]
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    dev = hidden.device
+    pad_bias = torch.where(torch.arange(Vp, device=dev) < vocab_size,
+                           0.0, -1e9).to(torch.float32)
+    if weights is None:
+        weights = torch.ones((B, S), dtype=torch.float32, device=dev)
+    total = None
+    for c0 in range(0, S, chunk):
+        part = checkpoint(_chunk_nll, hidden[:, c0:c0 + chunk],
+                          labels[:, c0:c0 + chunk], weights[:, c0:c0 + chunk],
+                          table, pad_bias, use_reentrant=False)
+        total = part if total is None else total + part
+    return total / torch.clamp(weights.to(torch.float32).sum(), min=1e-8)
 
 
 def l1_penalty(tree):

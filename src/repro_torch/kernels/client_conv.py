@@ -306,8 +306,14 @@ def conv_reference(x, w):
 def client_proj(proj, h):
     """Client-axis-aware 2-layer projection head: h (..., M, D) with
     leaves (..., D, H') / (..., H') of the same leading client axes; one
-    batched GEMM per layer."""
+    batched GEMM per layer (``torch.matmul``, as the reference's
+    ``jnp.matmul``, in the promoted dtype of its operands: float32
+    features through bf16 weights are a float32 product)."""
     def bias(b):
         return b.reshape(tuple(b.shape[:-1]) + (1,) + tuple(b.shape[-1:]))
-    z = torch.relu(torch.matmul(h, proj["w1"]) + bias(proj["b1"]))
-    return torch.matmul(z, proj["w2"])
+
+    def mm(a, w):
+        dt = torch.promote_types(a.dtype, w.dtype)
+        return torch.matmul(a.to(dt), w.to(dt))
+    z = torch.relu(mm(h, proj["w1"]) + bias(proj["b1"]))
+    return mm(z, proj["w2"])

@@ -14,6 +14,11 @@ path's key-validity mask for right-padded prompts, whose valid keys are
 a prefix of each row (``kv_len = last_index + 1``).  S need not divide
 any tile size.  A query row that sees no key (only possible with
 ``kv_len`` and a window) is zeros in both versions.
+
+The kernel has no backward (nor has the reference's): with grad mode on,
+a CUDA q, k or v that requires grad is refused, never passed through
+with its gradient silently cut.  Training takes the differentiable
+attention of ``models.attention.training_attention``.
 """
 from __future__ import annotations
 
@@ -83,7 +88,14 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, kv_len=None):
     float32, 8 in bfloat16, so transposed views of (B, S, H, hd)
     tensors go in as they are); kv_len an optional (B,) int32 tensor with values in
     [1, S].  Returns a (B, Hq, S, hd) view of a (B, S, Hq, hd) buffer,
-    so that transposing it back to the model's layout is free."""
+    so that transposing it back to the model's layout is free.  Raises
+    when grad mode is on and q, k or v requires grad: the output would
+    carry no gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise ValueError("flash_attention has no backward: an input "
+                         "requires grad; train with models.attention."
+                         "training_attention")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k and v must be 4-D (B, H, S, hd)")
     B, Hq, S, hd = q.shape

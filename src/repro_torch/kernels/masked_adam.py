@@ -62,14 +62,21 @@ def masked_adam_plain(p, g, mu, nu, mask, *, lr, b1, b2, eps, b1t, b2t):
 
 def adam_leaf_plain(p, g, mu, nu, *, lr, b1, b2, eps, b1t, b2t):
     """Plain PyTorch version of the client order: one leaf of
-    ``optim.adam.adam_update`` (no mask)."""
+    ``optim.adam.adam_update`` (no mask).  The float32 ops, in order:
+    mu' = b1 mu + (1 - b1) g, nu' = b2 nu + ((1 - b2) g) g,
+    delta = (mu' / b1t) / (sqrt(nu' / b2t) + eps), p' = p - lr delta;
+    written in place on four fresh buffers (the inputs are not touched),
+    which on the CPU saves the page faults of a buffer per op at the
+    LM's leaf sizes."""
     g = g.to(torch.float32)
-    mu = b1 * mu + (1 - b1) * g
-    nu = b2 * nu + (1 - b2) * g * g
-    mhat = mu / _rows(mu, b1t)
-    nhat = nu / _rows(nu, b2t)
-    delta = mhat / (torch.sqrt(nhat) + eps)
-    return (p.to(torch.float32) - lr * delta).to(p.dtype), mu, nu
+    tmp = torch.mul(g, 1 - b1)
+    mu = torch.mul(mu, b1).add_(tmp)
+    torch.mul(g, 1 - b2, out=tmp).mul_(g)
+    nu = torch.mul(nu, b2).add_(tmp)
+    torch.div(nu, _rows(nu, b2t), out=tmp).sqrt_().add_(eps)
+    delta = torch.div(mu, _rows(mu, b1t)).div_(tmp)
+    new_p = torch.sub(p.to(torch.float32), delta.mul_(lr), out=tmp)
+    return new_p.to(p.dtype), mu, nu
 
 
 def adam_multi_plain(leaves, *, client_order=False, **kw):

@@ -12,6 +12,13 @@ q, k and v to bf16 as it does, and runs ``mha_chunked`` on the CPU and
 the bf16 flash kernel on the card (``chunked_attention``).  Decode
 attention is ``mha_einsum`` in plain torch ops, as in the reference (one
 query row per step).
+
+The flash kernel has no backward, as the reference's Pallas kernel has
+none, and refuses inputs that need a gradient.  The LM trainer asks
+``attn_forward`` for the reference's training attention instead
+(``training=True``): ``mha_einsum``, or ``mha_chunked`` where the
+reference takes it, in torch ops that autograd differentiates, on the
+card as on the CPU.
 """
 from __future__ import annotations
 
@@ -182,8 +189,28 @@ def _head_gate(out, gate, dtype):
     return out * g
 
 
+def training_attention(q, k, v, *, causal: bool, window: int = 0,
+                       kv_len=None):
+    """The reference's training attention on (B, S, H, hd) q, k, v, in
+    torch ops that autograd differentiates: ``mha_chunked`` above
+    S = 2048 with S % 256 == 0 and no key mask, in blocks of
+    gcd(S, 1024) (``chunked_attention``'s CPU rule), else
+    ``mha_einsum`` (with ``kv_len`` as its prefix key mask)."""
+    S = q.shape[1]
+    if S > 2048 and S % 256 == 0 and kv_len is None:
+        chunk = math.gcd(S, 1024)
+        return mha_chunked(q, k, v, causal=causal, window=window,
+                           q_chunk=chunk, kv_chunk=chunk)
+    kv_valid = None
+    if kv_len is not None:
+        kv_valid = (torch.arange(k.shape[1], device=q.device)[None, :]
+                    < kv_len.to(q.device)[:, None])
+    return mha_einsum(q, k, v, causal=causal, window=window,
+                      kv_valid=kv_valid)
+
+
 def attn_forward(p, x, cfg, *, positions, causal=True, window=0,
-                 head_gate=None, kv_len=None):
+                 head_gate=None, kv_len=None, training=False):
     """Full-sequence self-attention (train / prefill).
 
     kv_len: optional (B,) int32 count of each row's valid keys for
@@ -193,12 +220,17 @@ def attn_forward(p, x, cfg, *, positions, causal=True, window=0,
     ``mha_chunked`` (``chunked_attention``).
     head_gate: AdaSplit structured mask, (H,) or (B, H), gating each
     head's output before the wo projection.
+    training: the reference's differentiable training attention
+    (``training_attention``) in place of the flash kernel.
     Returns (out, (k, v)) so prefill can stash the cache."""
     dtype = x.dtype
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, dtype)
     q, k = _rope_qk(q, k, cfg, positions)
-    if S > 2048 and S % 256 == 0 and kv_len is None:
+    if training:
+        out = training_attention(q, k, v, causal=causal, window=window,
+                                 kv_len=kv_len)
+    elif S > 2048 and S % 256 == 0 and kv_len is None:
         # where the reference's attn_forward takes mha_chunked
         out = chunked_attention(q, k, v, causal=causal, window=window)
     else:

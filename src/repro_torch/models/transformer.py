@@ -19,12 +19,14 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.layers import (apply_norm, embed, embedding_init,
                                        norm_init, unembed, vocab_pad_bias)
+from repro_torch.weights import tree_unstack
 
 _LATER = {"moe": "the MoE slice (models/moe.py)",
           "ssm": "the SSM/hybrid slice (models/ssm.py)",
@@ -147,17 +149,19 @@ def _unit_gate(gate, dtype):
 
 
 def apply_layer(cfg: ModelConfig, p, desc: LayerDesc, x, *, positions=None,
-                window=0, gates=None, kv_len=None):
+                window=0, gates=None, kv_len=None, training=False):
     """Full-sequence layer.  Returns (x, (k, v)): the layer's K/V, which
     prefill stashes as its cache.  (The reference also returns the MoE
-    router's aux loss, which a dense stack does not have.)"""
+    router's aux loss, which a dense stack does not have.)  ``training``
+    takes the differentiable training attention in place of the flash
+    kernel (``attn.attn_forward``)."""
     _check_layer(desc)
     dtype = x.dtype
     h = apply_norm(p["norm1"], x, cfg.norm)
     out, kv = attn.attn_forward(p["mixer"], h, cfg, positions=positions,
                                 causal=desc.causal, window=window,
                                 head_gate=_gate_or_none(gates, "mixer"),
-                                kv_len=kv_len)
+                                kv_len=kv_len, training=training)
     x = x + out
     if desc.ffn == "dense":
         h = apply_norm(p["norm2"], x, cfg.norm)
@@ -210,22 +214,42 @@ def _body_gates(gates, j):
 
 
 def run_segments(cfg, segments, seg_params, x, *, positions=None, window=0,
-                 gates=None, kv_len=None, on_layer=None):
+                 gates=None, kv_len=None, on_layer=None, training=False,
+                 remat=False):
     """gates: optional list aligned with segments; each entry a tree with
     leading n_rep dims matching the segment params (see core/masks.py).
     on_layer(si, j, (k, v)): optional hook called with every layer's
-    K/V, in order (prefill stashes its cache through it).  Returns x."""
+    K/V, in order (prefill stashes its cache through it).
+    training: every layer on the differentiable training attention.
+    remat: each layer under ``torch.utils.checkpoint`` (its activations
+    recomputed in the backward pass, the reference's ``jax.checkpoint``
+    of each scan step); no ``on_layer`` hook with it.  Returns x."""
+    if remat and on_layer is not None:
+        raise ValueError("remat keeps no layer's K/V for on_layer")
     for si, (seg, sp) in enumerate(zip(segments, seg_params)):
         g_seg = gates[si] if gates is not None else None
+        g_reps = [None] * seg.n_rep if g_seg is None else \
+            tree_unstack(g_seg, seg.n_rep)
+        p_reps = [tree_unstack(sp[j], seg.n_rep)
+                  for j in range(len(seg.body))]
         for r in range(seg.n_rep):
-            lg = _rep(g_seg, r)
             for j, desc in enumerate(seg.body):
-                x, kv = apply_layer(cfg, _rep(sp[j], r), desc, x,
-                                    positions=positions, window=window,
-                                    gates=_body_gates(lg, j), kv_len=kv_len)
+                kw = dict(positions=positions, window=window,
+                          gates=_body_gates(g_reps[r], j), kv_len=kv_len,
+                          training=training)
+                lp = p_reps[j][r]
+                if remat:
+                    x = checkpoint(_layer_out, cfg, lp, desc, x, kw,
+                                   use_reentrant=False)
+                    continue
+                x, kv = apply_layer(cfg, lp, desc, x, **kw)
                 if on_layer is not None:
                     on_layer(si, j, kv)
     return x
+
+
+def _layer_out(cfg, p, desc, x, kw):
+    return apply_layer(cfg, p, desc, x, **kw)[0]
 
 
 def run_segments_decode(cfg, segments, seg_params, x, caches, pos, *,
@@ -304,29 +328,38 @@ def _dtype(cfg, dtype):
 
 
 def client_forward(cfg: ModelConfig, p, tokens, extras=None, *, dtype=None,
-                   window=0):
-    """Bottom (client) stack -> split activations (B, S, D)."""
+                   window=0, training=False, remat=False):
+    """Bottom (client) stack -> split activations (B, S, D).  training /
+    remat: as in :func:`run_segments` (the LM trainer sets both)."""
     dtype = _dtype(cfg, dtype)
     x = _client_inputs(cfg, p, tokens, extras, dtype)
     return run_segments(cfg, model_plan(cfg)["client_segments"],
                         p["segments"], x,
                         positions=_positions_for(cfg, tokens, extras),
-                        window=window)
+                        window=window, training=training, remat=remat)
 
 
 def server_forward(cfg: ModelConfig, p, acts, tokens=None, extras=None, *,
-                   gates=None, window=0):
+                   gates=None, window=0, training=False, remat=False,
+                   return_hidden=False):
     """Server stack: split activations -> float32 logits (the reference
     also returns the MoE aux loss, which a dense stack does not have).
 
     gates: AdaSplit per-client structured masks (see core/masks.py), a
-    list aligned with the server segments."""
+    list aligned with the server segments.  training / remat: as in
+    :func:`run_segments`.  return_hidden: skip the unembed and return
+    (final-norm hidden states, router aux loss), as the reference does
+    for its chunked-CE path; the aux loss of a dense stack is a float32
+    zero."""
     positions = None
     if tokens is not None:
         positions = _positions_for(cfg, tokens, extras)
     x = run_segments(cfg, model_plan(cfg)["server_segments"], p["segments"],
-                     acts, positions=positions, window=window, gates=gates)
+                     acts, positions=positions, window=window, gates=gates,
+                     training=training, remat=remat)
     x = apply_norm(p["final_norm"], x, cfg.norm)
+    if return_hidden:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     logits = unembed(p["lm_head"], x)
     return logits + vocab_pad_bias(cfg.vocab_size, cfg.padded_vocab(),
                                    x.device)

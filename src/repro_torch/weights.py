@@ -41,6 +41,15 @@ def tree_unflatten(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
+def tree_unstack(tree, n):
+    """A tree of (n, ...) leaves as a list of its n row trees (views): one
+    ``unbind`` per leaf, whose backward stacks the rows' gradients into
+    one buffer, where indexing row by row would give each row's backward
+    a zero-filled (n, ...) tensor."""
+    rows = [torch.unbind(l) for l in tree_leaves(tree)]
+    return [tree_unflatten(tree, [u[i] for u in rows]) for i in range(n)]
+
+
 def _leaf_from_numpy(a, device):
     a = np.array(a, copy=True)
     if a.dtype.name == "bfloat16":
@@ -56,6 +65,24 @@ def from_numpy(tree, device):
     keeping each leaf's dtype (float32 stays float32, int32 int32,
     bfloat16 bfloat16)."""
     return tree_map(lambda a: _leaf_from_numpy(a, device), tree)
+
+
+def train_state_from_numpy(state, device, like=None):
+    """The reference's ``launch.steps.init_train_state`` output (a tree of
+    numpy arrays: the stacked client trees with their proj heads, the
+    server, the per-segment mask list, and the Adam ``mu``, ``nu`` and
+    scalar ``step``) as the port's LM train state on ``device``.  With
+    ``like`` (a port train state, e.g. ``init_train_state``'s), every
+    leaf must match its shape and dtype."""
+    out = from_numpy(state, device)
+    if like is not None:
+        got = [(tuple(t.shape), t.dtype) for t in tree_leaves(out)]
+        want = [(tuple(t.shape), t.dtype) for t in tree_leaves(like)]
+        if got != want:
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            raise ValueError(f"train state does not fit: {len(got)} leaves "
+                             f"for {len(want)}, mismatched leaves {bad[:5]}")
+    return out
 
 
 def to_numpy(tree):

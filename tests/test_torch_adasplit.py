@@ -263,9 +263,10 @@ serving = ['configs.qwen2_0_5b', 'models.layers', 'models.mlp',
            'utils.tree',
            'optim.sgd', 'optim.schedules', 'data.partition',
            'launch.compare', 'checkpoint', 'checkpoint.io',
-           'core.client_store']
+           'core.client_store', 'data.tokens', 'launch.train',
+           'core.losses', 'core.accounting']
 missing = [m for m in serving if 'repro_torch.' + m not in mods]
-assert len(mods) >= 43 and not missing, (mods, missing)
+assert len(mods) >= 45 and not missing, (mods, missing)
 assert not bad, bad
 print(len(mods))
 """

@@ -262,6 +262,65 @@ def test_flash_attention_refuses_what_it_cannot_take(cuda):
         tfa.flash_attention_cuda(q, q, q)
 
 
+def test_flash_attention_refuses_inputs_that_require_grad(cuda):
+    """The kernel has no backward: with grad mode on, a q, k or v that
+    requires grad is refused rather than given an output without a
+    gradient; under no_grad the same tensors run."""
+    q = torch.randn((1, 2, 64, 64), device=cuda, requires_grad=True)
+    k = torch.randn((1, 2, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="no backward"):
+        tfa.flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="no backward"):
+        tfa.flash_attention(q.detach(), k, k.clone().requires_grad_(True))
+    with torch.no_grad():
+        out = tfa.flash_attention(q, k, k)
+    assert not out.requires_grad
+
+
+def test_lm_train_step_on_card_matches_cpu_and_launches(cuda):
+    """One global LM train step (reduced qwen2, float32, C=2 cohorts of
+    4 rows) on the card and on the CPU from the same state: the losses
+    within 1e-4 and the new moments within 1e-4 of each leaf's largest
+    magnitude; on the card one NT-Xent forward and one backward launch,
+    the client Adam launches ``plan_launches`` predicts, and no flash
+    launch (training attention is ``mha_einsum``)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.weights import tree_map
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    C, b, S = 2, 4, 16
+    pol = tsteps.LaunchPolicy(param_dtype="float32")
+    fn = tsteps.build_train_step(cfg, InputShape("t", S, C * b, "train"),
+                                 pol, n_cohorts=C)
+    state = tsteps.init_train_state(cfg, C, pol, 0, device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, 512, (C * b, S)),
+             "labels": rng.integers(0, 512, (C * b, S)),
+             "seq_class": np.repeat(np.arange(C), b),
+             "select": np.array([1.0, 0.0], np.float32)}
+    batch = {k: torch.from_numpy(np.asarray(v).astype(
+        np.float32 if k == "select" else np.int32)) for k, v in batch.items()}
+    cpu_state = tree_map(lambda t: t.cpu(), state)
+    for m in (tma, tnt, tfa):
+        m.reset_launches()
+    new, mg = fn(state, {k: v.to(cuda) for k, v in batch.items()})
+    want = {"ntxent_stats": 1, "ntxent_backward": 1, "flash_attention": 0,
+            "client_adam": len(tma.plan_launches(
+                [t.numel() for t in tree_leaves(state["trainables"])])),
+            "masked_adam": 0}
+    got = dict(tnt.LAUNCHES, **tma.LAUNCHES, **tfa.LAUNCHES)
+    assert {k: got[k] for k in want} == want
+    new_c, mc = fn(cpu_state, batch)
+    for k in ("l_client", "ce"):
+        assert float(mg[k]) == pytest.approx(float(mc[k]), rel=1e-4)
+    for key in ("mu", "nu"):
+        for a, c in zip(tree_leaves(new["opt"][key]),
+                        tree_leaves(new_c["opt"][key])):
+            scale = float(c.abs().max()) or 1.0
+            assert float((a.cpu() - c).abs().max()) <= 1e-4 * scale
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_attention_repeats_bit_equal(cuda, dtype):
