@@ -77,8 +77,9 @@ time:
    own batching and bucketing; bf16, causal, kv_len where ragged; each
    distinct B=1 admission prefill of the continuous runs, buckets 8 to
    512, with its totals on a line of their own), at every prefill shape
-   of phase 7b's runs (``dense_runs()``: hd 128 and 96, totals per head
-   dim) and at phase 6's f32 shapes, against its plain version, with
+   of phase 7b's and 7c's runs (``arch_runs()``: hd 128 and 96, GQA
+   32/8, MHA 16/16 and 32/32 and qwen3's group of 8, 32/4; totals per
+   head dim) and at phase 6's f32 shapes, against its plain version, with
    device times,
    one ``scaled_dot_product_attention`` call as the library yardstick
    (and the kernel's ratio to it), host times per call of the wrapper
@@ -87,9 +88,13 @@ time:
    that rounds P once to bf16 before P V: it splits P into two bf16
    halves, so fewer of its outputs may differ from the plain version's
    and by less on average;
-6. qwen2-0.5b, granite-3-8b and phi3-mini-3.8b at full width cut to 2
-   layers, strict fp32: a prefill and teacher-forced decode steps on the
-   card and on the CPU, compared; then (qwen2-0.5b) a ragged
+6. qwen2-0.5b, granite-3-8b, phi3-mini-3.8b, deepseek-moe-16b (its
+   dense layer 0 on the client, an MoE layer on the server) and
+   qwen3-moe-30b-a3b at full width cut to 2 layers, strict fp32: a
+   prefill and teacher-forced decode steps on the card and on the CPU,
+   compared (MoE: the smallest top-K router margin, and the margin of
+   any token the two devices route differently); then (qwen2-0.5b) a
+   ragged
    six-request trace of mixed clients through
    ``ContinuousEngine`` (3 slots), ``ServeEngine`` one request at a
    time and ``ServeEngine`` with mixed batches, on the card: the greedy
@@ -114,6 +119,17 @@ time:
    prefill and a decode step profiled; phi3-mini-3.8b (32 layers, hd 96)
    and olmo-1b (16 layers) through the session CLI; flash launches one a
    layer per prefill;
+7c. MoE serving at full width, all layers, bf16, each run followed by
+   its peak device memory and its share of dropped (token, slot)
+   assignments (counted on the device, read once after the run):
+   deepseek-moe-16b (28 layers, 64 experts top-6, 2 shared) through the
+   session CLI, the mixed FIFO engine and ``ContinuousEngine`` on phase
+   7's 16 requests (``EngineStats`` equal to the dry run, steady steps
+   under ``sync_debug_mode("error")``), a prefill and a decode step
+   profiled; then, its params, caches and engines freed,
+   qwen3-moe-30b-a3b (48 layers, 128 experts top-8, GQA 32/4, 61.1 GB
+   of bf16 weights) through the session CLI alone; flash launches one a
+   layer per prefill;
 8. Table 1 through ``launch/compare.py`` and the baselines card vs CPU
    (phase 8);
 8b. the AdaSplit LM trainer (``repro_torch.launch.train``) on
@@ -132,7 +148,7 @@ time:
    the card and the CPU (equal selections, losses within
    ``LM_TRAIN_REL_TOL``);
 9. a ``kernels`` JSON line (all eight kernels; flash's launches those of
-   every phase 7 and 7b run, its times the hd-64 session and FIFO
+   every phase 7, 7b and 7c run, its times the hd-64 session and FIFO
    totals; NT-Xent's and client Adam's launches include phase 8b's),
    then the final ``{"ok": true, ...}`` line.
 
@@ -2156,13 +2172,17 @@ ADMISSION = "admission"         # label of the continuous runs' B=1 prefills
 # what sync_debug_mode("warn") says of each host sync it sees
 SYNC_WARNING = "called a synchronizing CUDA operation"
 LM_TWO_DEVICE = {"n_layers": 2, "batch": 2, "prompt_len": 64, "decode": 4}
-# phase 6's card-vs-CPU configs, full width cut to 2 layers, strict fp32
-TWO_DEVICE_ARCHS = (SERVE_ARCH, "granite-3-8b", "phi3-mini-3.8b")
 # phase 7b: dense serving at head dims 128 and 96, full width, all layers,
 # bf16: granite-3-8b on every path but the folded per-client FIFO mode,
 # the other two through the session CLI
 DENSE_ARCHS = ("granite-3-8b", "phi3-mini-3.8b", "olmo-1b")
-ALL_PATHS_ARCH = "granite-3-8b"
+# phase 7c: MoE serving, full width, all layers, bf16: deepseek-moe-16b on
+# the same paths as granite, qwen3-moe-30b-a3b (61.1 GB of bf16 weights)
+# through the session CLI alone
+MOE_ARCHS = ("deepseek-moe-16b", "qwen3-moe-30b-a3b")
+ALL_PATHS_ARCHS = ("granite-3-8b", "deepseek-moe-16b")
+# phase 6's card-vs-CPU configs, full width cut to 2 layers, strict fp32
+TWO_DEVICE_ARCHS = (SERVE_ARCH, "granite-3-8b", "phi3-mini-3.8b") + MOE_ARCHS
 
 
 def serving_runs():
@@ -2198,15 +2218,16 @@ def serving_runs():
                 "cache_len": 576}}}
 
 
-def dense_runs(arch):
-    """Phase 7b's runs of ``arch``: phase 7's session and, for
-    ``ALL_PATHS_ARCH``, the mixed (gated) FIFO engine and the continuous
+def arch_runs(arch):
+    """Phase 7b's and 7c's runs of ``arch``: phase 7's session and, for
+    ``ALL_PATHS_ARCHS``, the mixed (gated) FIFO engine and the continuous
     engine on the FIFO engines' 16 requests, its prefill and decode
     profiled.  The folded per-client FIFO mode is left out: granite's
     four folded servers (~52.6 GB) beside the model (~16.7 GB) leave no
-    margin on 80 GB, and qwen2-0.5b covers the mode."""
+    margin on 80 GB, nor do deepseek's four folded expert ``w_down``s
+    (~32 GB) beside its 32.8 GB, and qwen2-0.5b covers the mode."""
     runs = serving_runs()
-    every = arch == ALL_PATHS_ARCH
+    every = arch in ALL_PATHS_ARCHS
     runs["engines"] = {k: v for k, v in runs["engines"].items()
                        if every and k == "mixed"}
     runs["continuous"] = {k: v for k, v in runs["continuous"].items()
@@ -2352,7 +2373,8 @@ def check_flash(cases, gen):
     causal, kv_len-limited pairs it must compute; host times per call of
     the wrapper and of SDPA.  In bf16, ``split_p_check`` against
     ``flash_rounded_p``.  Totals per head dim over the bf16 session and
-    FIFO shapes, and apart over the bf16 B=1 admission shapes.  Returns
+    FIFO shapes, and apart over the bf16 B=1 admission shapes; an MoE
+    config's (``MOE_ARCHS``) apart from the dense ones.  Returns
     the hd-64 session and FIFO totals (the ``kernels`` line's) with the
     largest error of every case."""
     import torch
@@ -2413,6 +2435,9 @@ def check_flash(cases, gen):
             split_p_check(label, got, want, flash_rounded_p(q, k, v, kv_len))
             kind = "B=1 admission" if ADMISSION in label else \
                 "session and FIFO prefill"
+            # an MoE config's shapes total on lines of their own
+            kind += "".join(f" of {a}" for a in MOE_ARCHS
+                            if label.startswith(a + " "))
             into = totals.setdefault((hd, kind), dict.fromkeys(keys, 0.0))
             for key, val in zip(keys, (ms, plain_ms, lib_ms, bms, nbytes,
                                        flops)):
@@ -2450,35 +2475,89 @@ def lm_on_two_devices(arch):
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32))
     fa.reset_launches()
-    lg, cg = dec.prefill(cfg, gpu, toks.cuda(), cache_len=S + two["decode"])
-    launches = fa.LAUNCHES["flash_attention"]
-    lc, cc = dec.prefill(cfg, cpu, toks, cache_len=S + two["decode"])
-    worst, same, steps = 0.0, True, []
-    for t in range(two["decode"] + 1):
-        if t:
-            lg, cg = dec.decode_step(cfg, gpu, tok.cuda(), cg, S + t - 1)
-            lc, cc = dec.decode_step(cfg, cpu, tok, cc, S + t - 1)
-        # over the real vocabulary: the pad columns carry the -1e9 bias
-        a, b = lg.cpu()[..., :cfg.vocab_size], lc[..., :cfg.vocab_size]
-        scale = float(b.abs().max())
-        rel = float((a - b).abs().max()) / scale
-        worst = max(worst, rel)
-        tok = a.argmax(-1).to(torch.int32)      # the card's, fed to both
-        top2 = b.topk(2, dim=-1).values
-        tie = bool(((top2[..., 0] - top2[..., 1]) <= 2 * rel * scale).any())
-        eq = bool(torch.equal(tok, b.argmax(-1).to(torch.int32)))
-        same &= eq or tie
-        steps.append(tok[:, 0].tolist())
+    with routes_on_two_devices() as routes:
+        lg, cg = dec.prefill(cfg, gpu, toks.cuda(),
+                             cache_len=S + two["decode"])
+        launches = fa.LAUNCHES["flash_attention"]
+        lc, cc = dec.prefill(cfg, cpu, toks, cache_len=S + two["decode"])
+        worst, same, steps = 0.0, True, []
+        for t in range(two["decode"] + 1):
+            if t:
+                lg, cg = dec.decode_step(cfg, gpu, tok.cuda(), cg, S + t - 1)
+                lc, cc = dec.decode_step(cfg, cpu, tok, cc, S + t - 1)
+            worst, same, tok = logits_step(cfg, lg, lc, worst, same, steps)
     print(f"  [{arch}] prefill B={B} S={S} + {two['decode']} decode steps, "
           f"{two['n_layers']} layers of width {cfg.d_model} (hd "
           f"{cfg.head_dim}): flash launches "
           f"on the card {launches}; logits max rel err {worst:.3e}; greedy "
-          f"tokens equal on both devices: {same} (card's: {steps})")
+          f"tokens equal on both devices: {same} (card's: {steps})"
+          + route_margins(cfg, routes))
     if launches != two["n_layers"]:
         raise AssertionError(f"[{arch}] card prefill launched flash "
                              f"{launches} times")
     if not (worst < LM_REL_TOL and same):
         raise AssertionError(f"[{arch}] card and CPU LM steps disagree")
+
+
+def logits_step(cfg, lg, lc, worst, same, steps):
+    """One step of ``lm_on_two_devices``: the card's and the CPU's logits
+    compared over the real vocabulary; returns the running worst
+    relative error and token agreement (a near-tie within the error
+    counts as agreement) and the card's greedy token, fed to both."""
+    import torch
+    # over the real vocabulary: the pad columns carry the -1e9 bias
+    a, b = lg.cpu()[..., :cfg.vocab_size], lc[..., :cfg.vocab_size]
+    scale = float(b.abs().max())
+    rel = float((a - b).abs().max()) / scale
+    worst = max(worst, rel)
+    tok = a.argmax(-1).to(torch.int32)      # the card's, fed to both
+    top2 = b.topk(2, dim=-1).values
+    tie = bool(((top2[..., 0] - top2[..., 1]) <= 2 * rel * scale).any())
+    eq = bool(torch.equal(tok, b.argmax(-1).to(torch.int32)))
+    same &= eq or tie
+    steps.append(tok[:, 0].tolist())
+    return worst, same, tok
+
+
+@contextlib.contextmanager
+def routes_on_two_devices():
+    """Record every MoE router call's expert indices and f32 softmax
+    probabilities, per device, in call order."""
+    from repro_torch.models import moe
+    route, log = moe.route, {"cuda": [], "cpu": []}
+
+    def recorded(p, x, cfg):
+        out = route(p, x, cfg)
+        log[x.device.type].append((out[1].cpu(), out[2].cpu()))
+        return out
+    moe.route = recorded
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def route_margins(cfg, routes) -> str:
+    """The smallest top-K router margin (the K-th largest probability
+    less the (K+1)-th, on the CPU) over every MoE call of both runs, and
+    each token the two devices route differently, with its margin."""
+    import torch
+    if not cfg.n_experts:
+        return ""
+    K, least, parted = cfg.experts_per_token, math.inf, []
+    for call, ((ig, _), (ic, pc)) in enumerate(zip(routes["cuda"],
+                                                   routes["cpu"])):
+        top = torch.sort(pc, dim=-1, descending=True).values
+        margin = top[..., K - 1] - top[..., K]
+        least = min(least, float(margin.min()))
+        for b, s_ in (ig != ic).any(-1).nonzero().tolist():
+            parted.append((call, b, s_, float(margin[b, s_])))
+    out = (f"; {len(routes['cuda'])} router calls a device, smallest top-"
+           f"{K} router margin {least:.3e}; tokens routed differently: "
+           f"{len(parted)}")
+    for call, b, s_, m in parted:
+        out += f"\n    router call {call} row {b} token {s_}: margin {m:.3e}"
+    return out
 
 
 # phase 6's engines: the reference test's SPEC (tests/test_serve_continuous.py)
@@ -2735,6 +2814,7 @@ def run_continuous(cfg, params, masks, runs, fifo_tokens, device="cuda"):
             syncs["warned"] += sum(SYNC_WARNING in str(w.message)
                                    for w in caught)
         fa.reset_launches()
+        count_drops(cfg)
         _sync()
         t0 = time.perf_counter()
         with timed(dec, "prefill") as pre:
@@ -2758,7 +2838,7 @@ def run_continuous(cfg, params, masks, runs, fifo_tokens, device="cuda"):
               f"{st.tokens / wall} completed/s={st.completed / wall} "
               f"latency_s p50={np.median(lat)} max={lat.max()} "
               f"occupancy={st.occupancy} flash_launches={launches} for "
-              f"{n_adm} admission prefills")
+              f"{n_adm} admission prefills{drops(cfg)}")
         print(f"{tag} decode_ms_per_step="
               f"{(wall - sum(pre)) / st.decode_steps * 1e3} admission "
               f"prefill_ms={[round(x * 1e3, 3) for x in pre]} (mean "
@@ -2822,6 +2902,25 @@ def run_continuous(cfg, params, masks, runs, fifo_tokens, device="cuda"):
     return out
 
 
+def count_drops(cfg):
+    """Start counting an MoE config's dropped (token, slot) assignments
+    from zero (a device tensor; nothing is read inside a step)."""
+    from repro_torch.models import moe
+    moe.count_drops(bool(cfg.n_experts))
+
+
+def drops(cfg) -> str:
+    """The share of the assignments since ``count_drops`` that capacity
+    dropped (one host read, after the run), as printed; counting
+    stops."""
+    from repro_torch.models import moe
+    if not cfg.n_experts:
+        return ""
+    share, n = moe.drop_share(), moe.DROPS["assigned"]
+    moe.count_drops(False)
+    return f" dropped_assignments={share:.6f} of {n}"
+
+
 def peak_memory(tag):
     """Print the card's peak allocated memory since the last reset, and
     reset it."""
@@ -2834,9 +2933,12 @@ def peak_memory(tag):
 def run_serving(cfg, runs, device="cuda"):
     """``cfg`` at full width, all layers, bf16: the session CLI, the FIFO
     engine in each mode of ``runs["engines"]`` and the continuous runs
-    of ``runs["continuous"]``, each followed by its peak device memory;
-    then, where ``runs["profile"]``, a profiled prefill and decode step.
-    Returns per run its flash launches and prefill calls."""
+    of ``runs["continuous"]``, each followed by its peak device memory
+    (and, for an MoE config, its share of dropped assignments); then,
+    where ``runs["profile"]``, a profiled prefill and decode step.  The
+    engines' own params are built only where a run beside the session
+    needs them (the session CLI builds its own).  Returns per run its
+    flash launches and prefill calls."""
     import dataclasses
     import numpy as np
     import torch
@@ -2847,16 +2949,20 @@ def run_serving(cfg, runs, device="cuda"):
     from repro_torch.serve import ServeEngine
     from repro_torch.weights import tree_leaves
     torch.cuda.reset_peak_memory_stats()
-    params = init_serve_params(cfg, 0, device=device)
-    peak_memory(f"  [{cfg.name} init] {len(tree_leaves(params))} leaves, "
-                f"{sum(t.numel() for t in tree_leaves(params))} params:")
-    masks = tserve.random_masks(cfg, runs["n_clients"], device=device)
-    warm = torch.ones((2, 64), dtype=torch.int32, device=device)
-    tserve.serve_session(cfg, params, warm, 2, device=device)   # warm-up
+    own = runs["engines"] or runs["continuous"] or runs["profile"]
+    if own:
+        params = init_serve_params(cfg, 0, device=device)
+        peak_memory(f"  [{cfg.name} init] {len(tree_leaves(params))} "
+                    f"leaves, {sum(t.numel() for t in tree_leaves(params))}"
+                    " params:")
+        masks = tserve.random_masks(cfg, runs["n_clients"], device=device)
+        warm = torch.ones((2, 64), dtype=torch.int32, device=device)
+        tserve.serve_session(cfg, params, warm, 2, device=device)  # warm-up
     out = {}
     s = runs["session"]
     fa.reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    count_drops(cfg)
     with timed(dec, "prefill") as pre, timed(tserve, "serve_session") as ses:
         toks = tserve.main(session_argv(cfg, runs) + ["--device", device])
     if toks.shape != (s["batch"], s["gen"]) or not (
@@ -2867,9 +2973,10 @@ def run_serving(cfg, runs, device="cuda"):
           f"gen={s['gen']}: tokens/s={s['batch'] * s['gen'] / ses[0]} "
           f"prefill_ms={pre[0] * 1e3} decode_ms_per_token={dec_ms} "
           f"session_s={ses[0]} flash_launches="
-          f"{fa.LAUNCHES['flash_attention']} prefills={len(pre)}")
-    peak_memory(f"  [{cfg.name} session] (its own params beside the "
-                "engines')")
+          f"{fa.LAUNCHES['flash_attention']} prefills={len(pre)}"
+          f"{drops(cfg)}")
+    peak_memory(f"  [{cfg.name} session] (its own params, init and fold "
+                "included" + (", beside the engines')" if own else ")"))
     out["session"] = (fa.LAUNCHES["flash_attention"], len(pre))
     tokens = {}
     for mode, kw in runs["engines"].items():
@@ -2878,6 +2985,7 @@ def run_serving(cfg, runs, device="cuda"):
         for r in reqs:
             eng.submit(r)
         fa.reset_launches()
+        count_drops(cfg)
         with timed(dec, "prefill") as pre:
             _sync()
             t0 = time.perf_counter()
@@ -2900,7 +3008,7 @@ def run_serving(cfg, runs, device="cuda"):
               f"decode_ms_per_step={(wall - sum(pre)) / st.decode_steps * 1e3}"
               f" latency_s p50={np.median(lat)} max={lat.max()} "
               f"occupancy={st.occupancy} flash_launches="
-              f"{fa.LAUNCHES['flash_attention']}")
+              f"{fa.LAUNCHES['flash_attention']}{drops(cfg)}")
         print(f"  [{cfg.name} engine {mode}] EngineStats "
               + json.dumps(dataclasses.asdict(st)))
         peak_memory(f"  [{cfg.name} engine {mode}]")
@@ -2934,6 +3042,28 @@ def run_serving(cfg, runs, device="cuda"):
     profile_calls(lambda: dec.decode_step(cfg, params, tok, cache, S), 4,
                   f"{cfg.name} session decode", "decode steps", "step")
     return out
+
+
+def serve_archs(archs):
+    """``run_serving`` for each (config, runs) of ``archs`` in turn, each
+    run's flash launches held to one a layer per prefill; each arch's
+    params, caches and engines freed (and the cache emptied) before the
+    next is built.  Returns the flash launches of all runs."""
+    import torch
+    total = 0
+    for arch, (cfg, runs) in archs.items():
+        served = run_serving(cfg, runs)
+        for run, (n, prefills) in served.items():
+            if n != cfg.n_layers * prefills:
+                raise AssertionError(f"[{arch} {run}] {n} flash launches for"
+                                     f" {prefills} prefills of "
+                                     f"{cfg.n_layers} layers")
+            print(f"  [{arch} {run}] flash launches {n} = {cfg.n_layers} "
+                  f"per prefill x {prefills} prefills")
+        total += sum(n for n, _ in served.values())
+        del served
+        torch.cuda.empty_cache()
+    return total
 
 
 def main() -> int:
@@ -3031,15 +3161,17 @@ def main() -> int:
     # phase 5 ---------------------------------------------------------
     lm = get_config(SERVE_ARCH)
     serving = serving_runs()
-    dense = {arch: (get_config(arch), dense_runs(arch))
+    dense = {arch: (get_config(arch), arch_runs(arch))
              for arch in DENSE_ARCHS}
+    moe = {arch: (get_config(arch), arch_runs(arch)) for arch in MOE_ARCHS}
     print(f"phase 5: flash attention against its plain version, at "
           f"phase 7's prefill shapes ({SERVE_ARCH}, hd 64; the continuous "
           f"runs' B=1 admissions too), phase 7b's ({', '.join(DENSE_ARCHS)};"
-          " hd 128 and 96) and phase 6's f32 ones")
+          f" hd 128 and 96), phase 7c's ({', '.join(MOE_ARCHS)}; hd 128, "
+          "16/16 and 32/4) and phase 6's f32 ones")
     cases = flash_cases(lm, serving, fp32_prefill_shapes()
                         + [two_device_shape()])
-    for arch, (cfg_d, runs_d) in dense.items():
+    for arch, (cfg_d, runs_d) in {**dense, **moe}.items():
         cases += flash_cases(cfg_d, runs_d, [two_device_shape()]
                              if arch in TWO_DEVICE_ARCHS else [], arch + " ")
     flash = check_flash(cases, gen)
@@ -3071,21 +3203,20 @@ def main() -> int:
 
     # phase 7b --------------------------------------------------------
     print(f"phase 7b: serving at full width, all layers, bf16: "
-          f"{ALL_PATHS_ARCH} (hd 128) through the session CLI, the mixed "
-          "FIFO engine and ContinuousEngine; the others through the "
+          f"{ALL_PATHS_ARCHS[0]} (hd 128) through the session CLI, the "
+          "mixed FIFO engine and ContinuousEngine; the others through the "
           "session CLI")
-    for arch, (cfg_d, runs_d) in dense.items():
-        served = run_serving(cfg_d, runs_d)
-        for run, (n, prefills) in served.items():
-            if n != cfg_d.n_layers * prefills:
-                return fail(f"[{arch} {run}] {n} flash launches for "
-                            f"{prefills} prefills of {cfg_d.n_layers} "
-                            "layers")
-            print(f"  [{arch} {run}] flash launches {n} = "
-                  f"{cfg_d.n_layers} per prefill x {prefills} prefills")
-        launches["flash_attention"] += sum(n for n, _ in served.values())
-        torch.cuda.empty_cache()
+    launches["flash_attention"] += serve_archs(dense)
     phase_done("7b")
+
+    # phase 7c --------------------------------------------------------
+    print(f"phase 7c: MoE serving at full width, all layers, bf16: "
+          f"{ALL_PATHS_ARCHS[1]} (28 layers, 64 experts top-6) through the "
+          f"session CLI, the mixed FIFO engine and ContinuousEngine; "
+          f"{MOE_ARCHS[1]} (48 layers, 128 experts top-8, GQA 32/4) through "
+          "the session CLI")
+    launches["flash_attention"] += serve_archs(moe)
+    phase_done("7c")
 
     # phase 8 ---------------------------------------------------------
     print(f"phase 8: Table 1 (Mixed-NonIID) at lenet-cifar's published "

@@ -1,14 +1,13 @@
 """Config system of the port: the ``ModelConfig`` fields the LeNet path
-and the dense decoder-only LM path read, and the registry.
+and the decoder-only LM path (dense and MoE) read, and the registry.
 
 A copy of the reference's ``configs/base.py`` cut to ``InputShape``,
-the conv backbone and the dense LM stack: the M-RoPE, SSM, MoE-capacity
-and encoder-decoder fields and branches are left out (their slices
-bring them), in ``param_count`` too; so is the table of the assigned
-input shapes, which only the dry run reads.  ``n_experts`` and
-``attn_layer_period`` stay at 0 on every registered config and only keep
-``is_moe_layer``/``is_attn_layer`` and ``split_layer`` the reference's
-functions.
+the conv backbone and the dense and MoE LM stacks: the M-RoPE, SSM and
+encoder-decoder fields and branches are left out (their slices bring
+them), in ``param_count`` too; so is the table of the assigned input
+shapes, which only the dry run reads.  ``attn_layer_period`` stays at 0
+on every registered config and only keeps ``is_attn_layer`` and
+``split_layer`` the reference's functions.
 """
 from __future__ import annotations
 
@@ -55,11 +54,17 @@ class ModelConfig:
     norm: str = "rms"
     tie_embeddings: bool = False  # metadata: the LM head is server-owned
 
-    # MoE / hybrid interleave (0 on every config this slice serves)
+    # MoE
     n_experts: int = 0
-    moe_layer_period: int = 1
+    n_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    moe_layer_period: int = 1  # MoE on layers where (i % period) == offset
     moe_layer_offset: int = 0
-    first_k_dense: int = 0
+    first_k_dense: int = 0  # deepseek: first layer(s) dense
+    moe_capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # hybrid interleave (0 on every registered config)
     attn_layer_period: int = 0
     attn_layer_offset: int = 0
 
@@ -103,7 +108,8 @@ class ModelConfig:
         return ((self.vocab_size + multiple - 1) // multiple) * multiple
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant: <=2 layers, d_model<=256, <=4 heads."""
+        """Smoke-test variant: <=2 layers, d_model<=256, <=4 heads, <=4
+        experts."""
         d_model = min(self.d_model, 256) or 64
         n_heads = min(self.n_heads, 4)
         head_dim = max(16, d_model // max(n_heads, 1)) if n_heads else 0
@@ -116,7 +122,10 @@ class ModelConfig:
             head_dim=head_dim,
             d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 512) or self.vocab_size,
+            moe_d_ff=min(self.moe_d_ff, 128),
             n_experts=min(self.n_experts, 4),
+            n_shared_experts=min(self.n_shared_experts, 1),
+            experts_per_token=min(self.experts_per_token, 2),
             first_k_dense=min(self.first_k_dense, 0),
             conv_channels=tuple(min(c, 16) for c in self.conv_channels),
         )
@@ -127,7 +136,7 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding included once): the
-        reference's conv and dense branches."""
+        reference's conv, dense and MoE branches."""
         if self.is_conv:
             # rough lenet-style count
             total, cin = 0, 3
@@ -140,20 +149,29 @@ class ModelConfig:
         emb = self.vocab_size * d
         per_attn = (self.n_heads + 2 * self.n_kv_heads) * self.head_dim * d \
             + self.n_heads * self.head_dim * d
-        per_layer = (per_attn if self.n_heads else 0) + 3 * d * self.d_ff
-        return emb + (0 if self.tie_embeddings else emb) \
-            + self.n_layers * per_layer
+        total = emb + (0 if self.tie_embeddings else emb)
+        for i in range(self.n_layers):
+            total += per_attn if self.n_heads else 0
+            if self.is_moe_layer(i):
+                total += self.n_experts * 3 * d * self.moe_d_ff
+                total += self.n_shared_experts * 3 * d * self.moe_d_ff
+                total += d * self.n_experts  # router
+            elif self.d_ff:
+                total += 3 * d * self.d_ff
+        return total
 
     def active_param_count(self) -> int:
-        """Params touched per token: all of them in a dense model (the
-        reference subtracts unrouted experts, which no config here has)."""
-        return self.param_count()
+        """Params touched per token (MoE: only the routed top-k)."""
+        inactive = sum((self.n_experts - self.experts_per_token)
+                       * 3 * self.d_model * self.moe_d_ff
+                       for i in range(self.n_layers) if self.is_moe_layer(i))
+        return self.param_count() - inactive
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 ARCH_MODULES = ["lenet_cifar", "qwen2_0_5b", "olmo_1b", "granite_3_8b",
-                "phi3_mini_3_8b"]
+                "phi3_mini_3_8b", "deepseek_moe_16b", "qwen3_moe_30b_a3b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -2,8 +2,8 @@
 (communication, eq. 2) meters.
 
 A copy of the reference's ``core/accounting.py`` (numpy only), cut to
-what the LeNet and the LM trainers bill (the dense, decoder-only
-branches of the transformer FLOP models).
+what the LeNet and the LM trainers bill (the decoder-only branches of
+the transformer FLOP models, dense and MoE).
 
 Bandwidth counts actual payload bytes crossing the client<->server
 boundary (activations + labels up, gradients down when applicable).
@@ -83,8 +83,9 @@ def lenet_flops_per_example(cfg: ModelConfig, part: str = "full") -> float:
 
 
 def transformer_matmul_params(cfg: ModelConfig, part: str = "full") -> float:
-    """Matmul weights touched per token (the embedding rows are gathered,
-    not multiplied; the LM head is server-side)."""
+    """Matmul weights touched per token, active experts only (the
+    embedding rows are gathered, not multiplied; the LM head is
+    server-side)."""
     full = cfg.active_param_count()
     emb = cfg.padded_vocab() * cfg.d_model
     body = full - 2 * emb if not cfg.is_conv else full

@@ -5,9 +5,9 @@ the transformer half (port of ``repro.core.masks``).
   transforming the params before the forward (``apply_scalar_masks``),
   so grads are masked by the chain rule — exactly eq. 7.
 * ``per_unit`` — one mask value per conv output channel / FC hidden
-  unit / attention head / MLP hidden unit, applied in activation space
-  as gates, or folded into the server weights for serving
-  (``fold_unit_masks``).
+  unit / attention head / MLP hidden unit / expert, applied in
+  activation space as gates, or folded into the server weights for
+  serving (``fold_unit_masks``).
 
 Mask leaves are continuous, init 1.0, driven sparse by the L1 term;
 ``binarize`` thresholds them and ``sparsity`` reports the fraction of
@@ -39,7 +39,8 @@ def _seg_unit_masks(cfg, seg: Segment, n_clients: int, device):
             m["ffn"] = torch.ones((n_clients, seg.n_rep, cfg.d_ff),
                                   device=device)
         elif desc.ffn == "moe":
-            raise NotImplementedError("expert masks come with the MoE slice")
+            m["ffn"] = torch.ones((n_clients, seg.n_rep, cfg.n_experts),
+                                  device=device)
         return m
     return {str(j): one(d) for j, d in enumerate(seg.body)}
 
@@ -93,7 +94,8 @@ def fold_unit_masks(cfg, server_params, masks, client: int, *,
 
     Equivalent to gating at every step (gating a unit's output == scaling
     the rows of the following projection: the attention ``wo`` rows of
-    a head, the ``w_down`` rows of an MLP hidden unit), but paid ONCE
+    a head, the ``w_down`` rows of an MLP hidden unit, the whole
+    ``w_down`` of an expert), but paid ONCE
     per serving session.  threshold > 0 binarises first.  Only ``wo``
     and ``w_down`` are copied; every other leaf is shared with
     ``server_params``."""
@@ -115,10 +117,12 @@ def fold_unit_masks(cfg, server_params, masks, client: int, *,
                     mixer["wo"].dtype)
                 layer["mixer"] = mixer
             if g.get("ffn") is not None and "ffn" in layer:
-                gf = g["ffn"]                    # (n_rep, F)
+                gf = g["ffn"]                    # (n_rep, F) or (n_rep, E)
                 ffn = dict(layer["ffn"])
-                ffn["w_down"] = ffn["w_down"] * gf[..., None].to(
-                    ffn["w_down"].dtype)
+                # an expert's w_down is (F, D): scale it whole
+                gf = gf[..., None, None] if desc.ffn == "moe" else \
+                    gf[..., None]
+                ffn["w_down"] = ffn["w_down"] * gf.to(ffn["w_down"].dtype)
                 layer["ffn"] = ffn
             sp[j] = layer
         new_segments.append(sp)

@@ -9,7 +9,9 @@ binary mask into the server weights ONCE and then serves plain steps.
 
 Usage (on the CUDA card by default; ``--device cpu`` runs the plain
 kernel versions; ``--arch`` one of ``configs.base.list_archs()``:
-granite-3-8b, olmo-1b, phi3-mini-3.8b, qwen2-0.5b):
+deepseek-moe-16b, granite-3-8b, olmo-1b, phi3-mini-3.8b, qwen2-0.5b,
+qwen3-moe-30b-a3b; ``--fold-mask`` folds an MoE client's expert masks
+into its experts' ``w_down``):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
       --prompt-len 512 --gen 32 --batch 8 --fold-mask
 """

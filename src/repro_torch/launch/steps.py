@@ -67,11 +67,14 @@ class LaunchPolicy:
     n_seq_classes: int = 16       # NT-Xent sequence-class label space
 
 
-def _cast_leaf(p, dt):
+def _cast_leaf(p, dt, shape=None):
     """``dt`` for a large matmul leaf (>= 2 dims and >= 65,536 elements,
     stacked axes counted); small and 1-D leaves (norm scales, biases)
-    stay float32."""
-    if p.dtype == torch.float32 and p.ndim >= 2 and p.numel() >= 1 << 16:
+    stay float32.  ``shape``: the whole leaf's, where ``p`` is one row
+    of it (the row is cast as the whole leaf would be)."""
+    shape = tuple(p.shape) if shape is None else tuple(shape)
+    if p.dtype == torch.float32 and len(shape) >= 2 \
+            and math.prod(shape) >= 1 << 16:
         return p.to(dt)
     return p
 
@@ -113,6 +116,7 @@ def init_train_state(cfg, n_cohorts: int, policy: LaunchPolicy, seed=0, *,
     are cast to ``policy.param_dtype`` after the stacking (the stacked
     size decides, as the reference casts the stacked tree); the masks
     and the Adam moments stay float32."""
+    tfm.refuse_moe_training(cfg)
     gen = _generator(seed, device)
     dt = getattr(torch, policy.param_dtype)
     cast = lambda t: _cast_leaf(t.to(device), dt)
@@ -314,15 +318,18 @@ def init_serve_params(cfg, seed=0, dtype: str = "bfloat16", *,
     int, or a ``torch.Generator`` whose device the draws are made on),
     on ``device``.  An int seeds a generator on ``device``, so a
     full-width init is drawn on the card.  Each weight is moved and cast
-    as it is drawn, so the peak is the cast model plus one float32
-    leaf (granite-3-8b in bf16: ~23 GB, where the whole float32 tree
-    beside its bf16 copy was ~50 GB); the values are those of casting
-    the whole float32 tree."""
+    as it is drawn, and a stacked expert leaf one ``n_rep`` row at a
+    time, so the peak is the cast model plus one float32 dense leaf or
+    expert row (granite-3-8b in bf16: ~23 GB, where the whole float32
+    tree beside its bf16 copy was ~50 GB; qwen3-moe-30b-a3b: 61.1 GB
+    plus a 0.81 GB row, where its server's stacked float32 ``w_gate``
+    alone is 30.6 GB); the values are those of casting the whole
+    float32 tree."""
     gen = _generator(seed, device)
     dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
-    def cast(t):
-        return _cast_leaf(t.to(device), dt)
+    def cast(t, shape=None):
+        return _cast_leaf(t.to(device), dt, shape)
     params = {"client": tfm.init_client_params(cfg, gen, cast),
               "server": tfm.init_server_params(cfg, gen, cast)}
     return tree_map(cast, params)

@@ -91,6 +91,7 @@ class LMAdaSplitTrainer:
     def __init__(self, cfg, shape: InputShape, policy: LaunchPolicy, *,
                  n_cohorts=1, kappa=0.6, eta=0.6, gamma=0.87, seed=0,
                  epoch_scan=False, device="cuda", jitter=None, state=None):
+        tfm.refuse_moe_training(cfg)
         self.cfg, self.shape, self.policy = cfg, shape, policy
         self.kappa, self.eta, self.gamma = kappa, eta, gamma
         self.epoch_scan = epoch_scan

@@ -1,4 +1,4 @@
-"""Decoder-only LM stack, dense subset (port of
+"""Decoder-only LM stack, dense and MoE (port of
 ``repro.models.transformer``).
 
 The stack is organised into **segments**: maximal runs of layers whose
@@ -8,8 +8,8 @@ reference's scan over ``n_rep`` is a Python loop here.  AdaSplit's
 client/server split slices the stack at ``cfg.split_layer`` and
 re-segments each side.
 
-This slice carries the ``attn`` mixer and the ``dense`` ffn; the MoE,
-SSM, cross-attention and modality-frontend branches raise
+This slice carries the ``attn`` mixer and the ``dense`` and ``moe``
+ffns; the SSM, cross-attention and modality-frontend branches raise
 ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
@@ -24,12 +24,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_norm, embed, embedding_init,
                                        norm_init, unembed, vocab_pad_bias)
 from repro_torch.weights import tree_unstack
 
-_LATER = {"moe": "the MoE slice (models/moe.py)",
-          "ssm": "the SSM/hybrid slice (models/ssm.py)",
+_LATER = {"ssm": "the SSM/hybrid slice (models/ssm.py)",
           "cross": "the encoder-decoder slice",
           "frontend": "the multimodal (audio / vision) slice"}
 
@@ -37,6 +37,17 @@ _LATER = {"moe": "the MoE slice (models/moe.py)",
 def _later(what: str):
     raise NotImplementedError(f"{what} is not ported yet: it comes with "
                               f"{_LATER[what]}")
+
+
+def refuse_moe_training(cfg: ModelConfig):
+    """Training an MoE stack needs the router aux loss in the objective
+    (the reference adds ``router_aux_coef * aux``), which the port's
+    train step does not compute: refuse rather than train without it."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training is not ported yet (ROADMAP.md, "
+            "queue 1: \"MoE training (router aux loss)\"); the port "
+            "serves MoE configs only")
 
 
 # ---------------------------------------------------------------------------
@@ -105,8 +116,6 @@ def _check_layer(desc: LayerDesc):
         _later("ssm")
     if desc.cross:
         _later("cross")
-    if desc.ffn == "moe":
-        _later("moe")
 
 
 def _layer_init(gen, cfg: ModelConfig, desc: LayerDesc, n_rep: int,
@@ -118,9 +127,11 @@ def _layer_init(gen, cfg: ModelConfig, desc: LayerDesc, n_rep: int,
     p: Dict[str, Any] = {"norm1": norm_init(cfg.d_model, cfg.norm, lead,
                                             gen.device),
                          "mixer": attn.attention_init(gen, cfg, lead, cast)}
-    if desc.ffn == "dense":
+    if desc.ffn != "none":
         p["norm2"] = norm_init(cfg.d_model, cfg.norm, lead, gen.device)
-        p["ffn"] = mlp_mod.mlp_init(gen, cfg.d_model, cfg.d_ff, lead, cast)
+        p["ffn"] = moe_mod.moe_init(gen, cfg, lead, cast) \
+            if desc.ffn == "moe" else \
+            mlp_mod.mlp_init(gen, cfg.d_model, cfg.d_ff, lead, cast)
     return p
 
 
@@ -148,34 +159,42 @@ def _unit_gate(gate, dtype):
     return g if g.ndim == 1 else g[:, None, :]
 
 
+def _ffn(cfg: ModelConfig, p, desc: LayerDesc, x, gates):
+    """The ffn sublayer and its residual add: the dense SwiGLU, its
+    hidden units gated, or the MoE block, its experts gated (an (E,) or
+    (B, E) gate as it comes)."""
+    if desc.ffn == "none":
+        return x
+    h = apply_norm(p["norm2"], x, cfg.norm)
+    gate = _gate_or_none(gates, "ffn")
+    if desc.ffn == "moe":
+        return x + moe_mod.moe_forward(p["ffn"], h, cfg, expert_gate=gate)[0]
+    return x + mlp_mod.mlp_forward(p["ffn"], h,
+                                   unit_gate=_unit_gate(gate, x.dtype))
+
+
 def apply_layer(cfg: ModelConfig, p, desc: LayerDesc, x, *, positions=None,
                 window=0, gates=None, kv_len=None, training=False):
     """Full-sequence layer.  Returns (x, (k, v)): the layer's K/V, which
-    prefill stashes as its cache.  (The reference also returns the MoE
-    router's aux loss, which a dense stack does not have.)  ``training``
-    takes the differentiable training attention in place of the flash
-    kernel (``attn.attn_forward``)."""
+    prefill stashes as its cache.  (The reference returns the MoE
+    router's aux loss in its place; ``moe_forward`` computes it, and no
+    serving path reads it.)  ``training`` takes the differentiable
+    training attention in place of the flash kernel
+    (``attn.attn_forward``)."""
     _check_layer(desc)
-    dtype = x.dtype
     h = apply_norm(p["norm1"], x, cfg.norm)
     out, kv = attn.attn_forward(p["mixer"], h, cfg, positions=positions,
                                 causal=desc.causal, window=window,
                                 head_gate=_gate_or_none(gates, "mixer"),
                                 kv_len=kv_len, training=training)
     x = x + out
-    if desc.ffn == "dense":
-        h = apply_norm(p["norm2"], x, cfg.norm)
-        x = x + mlp_mod.mlp_forward(
-            p["ffn"], h,
-            unit_gate=_unit_gate(_gate_or_none(gates, "ffn"), dtype))
-    return x, kv
+    return _ffn(cfg, p, desc, x, gates), kv
 
 
 def apply_layer_decode(cfg: ModelConfig, p, desc: LayerDesc, x, cache, pos,
                        *, window=0, gates=None):
     """One-token layer step.  Returns (x, new_cache)."""
     _check_layer(desc)
-    dtype = x.dtype
     h = apply_norm(p["norm1"], x, cfg.norm)
     new_cache = dict(cache)
     out, kv = attn.attn_decode(p["mixer"], h, cache["mixer"], pos, cfg,
@@ -183,12 +202,7 @@ def apply_layer_decode(cfg: ModelConfig, p, desc: LayerDesc, x, cache, pos,
                                head_gate=_gate_or_none(gates, "mixer"))
     new_cache["mixer"] = kv
     x = x + out
-    if desc.ffn == "dense":
-        h = apply_norm(p["norm2"], x, cfg.norm)
-        x = x + mlp_mod.mlp_forward(
-            p["ffn"], h,
-            unit_gate=_unit_gate(_gate_or_none(gates, "ffn"), dtype))
-    return x, new_cache
+    return _ffn(cfg, p, desc, x, gates), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +240,8 @@ def run_segments(cfg, segments, seg_params, x, *, positions=None, window=0,
     of each scan step); no ``on_layer`` hook with it.  Returns x."""
     if remat and on_layer is not None:
         raise ValueError("remat keeps no layer's K/V for on_layer")
+    if training or remat:
+        refuse_moe_training(cfg)
     for si, (seg, sp) in enumerate(zip(segments, seg_params)):
         g_seg = gates[si] if gates is not None else None
         g_reps = [None] * seg.n_rep if g_seg is None else \

@@ -142,6 +142,41 @@ def test_engine_equals_jax(setup, case):
                                "row_reads": len(spec)}
 
 
+# reduced deepseek-moe-16b (dense first layer on the client, a two-layer
+# MoE segment on the server), float32: a 30-token prompt is admitted at
+# bucket 32 (C = 24) where the short ones get C = 8
+MOE_SPEC = [(0, 30, 3), (1, 5, 4), (2, 9, 2), (0, 6, 3), (1, 17, 2),
+            (3, 12, 3)]
+
+
+def test_moe_engine_equals_jax(setup):
+    """``ContinuousEngine`` on the MoE stack: the tokens, counting stats,
+    admission log and completion order of the reference's engine."""
+    jcfg, tcfg = (dataclasses.replace(
+        get("deepseek-moe-16b").reduced(), first_k_dense=1, n_layers=3,
+        dtype="float32") for get in (jget_config, get_config))
+    jp = jinit_serve_params(jcfg, jax.random.PRNGKey(1), dtype="float32")
+    rng = np.random.default_rng(12)
+    jm = jax.tree.map(lambda m: jnp.asarray(
+        (rng.random(m.shape) > 0.4).astype(np.float32)),
+        jmasks.init_unit_masks(jcfg, N_CLIENTS))
+    to_t = lambda t: from_numpy(jax.tree.map(np.asarray, t), "cpu")
+    prompts = _prompts(MOE_SPEC, jcfg.vocab_size, seed=8)
+    from repro_torch.models.moe import _capacity
+    assert (_capacity(30, tcfg), _capacity(6, tcfg)) == (24, 8)
+    kw = dict(max_batch=3, cache_len=48)
+    jeng = JContinuousEngine(jcfg, jp, jm, **kw)
+    teng = ContinuousEngine(tcfg, to_t(jp), to_t(jm), device="cpu", **kw)
+    jreqs, jorder = _drive(jeng, JRequest, MOE_SPEC, prompts)
+    treqs, torder = _drive(teng, Request, MOE_SPEC, prompts)
+    for a, b in zip(jreqs, treqs):
+        np.testing.assert_array_equal(b.output, np.asarray(a.output))
+    for name in COUNTERS:
+        assert getattr(teng.stats, name) == getattr(jeng.stats, name), name
+    assert teng.sched.admission_log == jeng.sched.admission_log
+    assert torder == jorder
+
+
 # ---------------------------------------------------------------------------
 # cache and gate surgery, bit-equal to the JAX functions
 # ---------------------------------------------------------------------------

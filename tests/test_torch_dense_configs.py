@@ -150,10 +150,14 @@ def test_config_matches_reference(arch, narrow):
             _plan(jtfm.model_plan(j)[side])
 
 
-def test_list_archs_is_the_registered_dense_set():
-    assert list_archs() == sorted(ARCHS + ("qwen2-0.5b",))
+# the registered LM archs beyond this file's dense three
+OTHER_ARCHS = ("qwen2-0.5b", "deepseek-moe-16b", "qwen3-moe-30b-a3b")
+
+
+def test_list_archs_is_the_registered_set_of_seven():
+    assert list_archs() == sorted(ARCHS + OTHER_ARCHS)
     assert list_archs(include_paper=True) == sorted(
-        ARCHS + ("qwen2-0.5b", "lenet-cifar"))
+        ARCHS + OTHER_ARCHS + ("lenet-cifar",))
     assert get_config("lenet-cifar").param_count() == \
         jget_config("lenet-cifar").param_count()
 
@@ -387,12 +391,19 @@ def test_attn_forward_at_2048_is_the_flash_path_unchanged():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_init_serve_params_leaf_by_leaf_equals_whole_tree_cast(dtype):
-    """Casting each weight as it is drawn gives, bit for bit, what
-    drawing the whole float32 tree and casting it after gives (reduced
-    qwen2, seed 0): same keys, dtypes and values."""
-    cfg = get_config("qwen2-0.5b").reduced()
+@pytest.mark.parametrize("arch,dtype", [
+    ("qwen2-0.5b", "bfloat16"), ("qwen2-0.5b", "float32"),
+    ("deepseek-moe-16b", "bfloat16"), ("deepseek-moe-16b", "float32")],
+    ids=["bfloat16", "float32", "moe-bfloat16", "moe-float32"])
+def test_init_serve_params_leaf_by_leaf_equals_whole_tree_cast(arch, dtype):
+    """Casting each weight as it is drawn (a stacked expert leaf one
+    ``n_rep`` row at a time) gives, bit for bit, what drawing the whole
+    float32 tree and casting it after gives (reduced qwen2, and reduced
+    deepseek with its dense first layer and a two-layer MoE segment,
+    seed 0): same keys, dtypes and values."""
+    cfg = get_config(arch).reduced()
+    if arch == "deepseek-moe-16b":
+        cfg = dataclasses.replace(cfg, first_k_dense=1, n_layers=3)
     gen = torch.Generator(device="cpu").manual_seed(0)
     whole = {"client": ttfm.init_client_params(cfg, gen),
              "server": ttfm.init_server_params(cfg, gen)}

@@ -15,6 +15,9 @@ so); the flash kernel sums its
 float32 dots and softmax in another order than the plain version, with
 exp2 in place of exp (2e-5 absolute on outputs of order 1 in float32;
 in bfloat16 the output is rounded to 8 bits of mantissa, 2e-2); the
+MoE block (torch ops and cuBLAS products, no kernel of its own) sums in
+other orders than the CPU (1e-5 of the largest magnitude in strict
+fp32); the
 NT-Xent kernels sum their f32 dots and row sums in another order (1e-5
 of the largest magnitude); soft-threshold is bit-equal to its plain
 version.  The round and epoch rungs on the card must select and bill as
@@ -228,6 +231,88 @@ def test_flash_attention_head_dims_match_plain(cuda, hd, B, Hq, Hkv, S, dtype,
     assert got.shape == (B, Hq, S, hd) and got.dtype == dtype
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,ragged", [(8, 512, False), (8, 407, True),
+                                         (1, 64, True)])
+def test_flash_attention_gqa_32_4_hd128_matches_plain(cuda, B, S, ragged):
+    """qwen3-moe-30b-a3b's prefill shape: 32 query heads over 4 kv heads
+    (a group of 8), hd 128, bf16, causal, kv_len where ragged."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((B, S, h, 128), device=cuda, generator=gen)
+               .to(torch.bfloat16).transpose(1, 2) for h in (32, 4, 4))
+    kv_len = torch.randint(1, S + 1, (B,), device=cuda, generator=gen,
+                           dtype=torch.int32) if ragged else None
+    before = tfa.LAUNCHES["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=True, kv_len=kv_len)
+    want = tfa.flash_attention_plain(q, k, v, causal=True, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == (B, 32, S, 128) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+
+
+def _moe_block(cuda, seed=0, **kw):
+    """A reduced deepseek-moe-16b MoE block (4 experts top-2, a shared
+    expert) in float32 on the card and its copy on the CPU."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(),
+                              dtype="float32", **kw)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    p = moe.moe_init(gen, cfg)
+    return cfg, p, {k: v.cpu() if torch.is_tensor(v) else
+                    {n: t.cpu() for n, t in v.items()} for k, v in p.items()}
+
+
+def test_moe_forward_on_card_matches_cpu_with_drops(cuda):
+    """``moe_forward`` on the card against the CPU at one reduced shape in
+    strict fp32 (C = 16 for 64 tokens x top-2 over 4 experts at capacity
+    factor 0.5, so assignments drop): equal routing and drops, outputs
+    within f32 rounding (1e-5 of the largest magnitude), a (B, E) gate."""
+    from repro_torch.models import moe
+    cfg, gp, cp = _moe_block(cuda, moe_capacity_factor=0.5)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((3, 64, cfg.d_model), device=cuda, generator=gen)
+    gate = (torch.rand((3, cfg.n_experts), device=cuda, generator=gen)
+            > 0.3).float()
+    moe.count_drops()
+    try:
+        y, aux = moe.moe_forward(gp, x, cfg, gate)
+        share = moe.drop_share()
+    finally:
+        moe.count_drops(False)
+    yc, auxc = moe.moe_forward(cp, x.cpu(), cfg, gate.cpu())
+    _, idx, _, _ = moe.route(gp, x, cfg)
+    _, idxc, _, _ = moe.route(cp, x.cpu(), cfg)
+    assert torch.equal(idx.cpu(), idxc) and share > 0
+    torch.testing.assert_close(y.cpu(), yc, rtol=0,
+                               atol=1e-5 * float(yc.abs().max()))
+    torch.testing.assert_close(aux.cpu(), auxc, rtol=0, atol=1e-6)
+
+
+def test_moe_decode_step_makes_no_host_sync(cuda):
+    """A reduced MoE decode step (deepseek: dense first layer, two MoE
+    layers; per-example gates) runs under sync_debug_mode("error")."""
+    from repro_torch.core import masks as tmasks
+    from repro_torch.launch.steps import init_serve_params
+    from repro_torch.models import decode as dec
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(),
+                              first_k_dense=1, n_layers=3, dtype="float32")
+    params = init_serve_params(cfg, 0, "float32", device=cuda)
+    gates = tmasks.expand_gates(
+        tmasks.init_unit_masks(cfg, 3, device=cuda), [2, 0, 1])
+    toks = torch.randint(0, cfg.vocab_size, (3, 12), device=cuda,
+                         dtype=torch.int32)
+    lg, cache = dec.prefill(cfg, params, toks, gates=gates, cache_len=16)
+    tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg, cache = dec.decode_step(cfg, params, tok, cache, 12, gates=gates)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert lg.shape == (3, 1, cfg.padded_vocab())
+    assert bool(torch.isfinite(lg).all())
 
 
 def test_chunked_attention_on_card_matches_cpu(cuda):

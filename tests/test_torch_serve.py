@@ -129,3 +129,86 @@ def test_entry_points_default_to_the_card(setup):
     for fn in (tserve.serve_session, init_serve_params):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert all(t.device.type == "cpu" for t in tree_leaves(tp))
+
+
+# ---------------------------------------------------------------------------
+# MoE: reduced deepseek-moe-16b (its dense first layer on the client, a
+# two-layer MoE segment on the server), float32
+# ---------------------------------------------------------------------------
+
+# a 30-token prompt pads its batch to C = 24 (30 x top-2 / 4 experts x
+# 1.25, rounded up to 8) where the 5- and 6-token prompts alone get C = 8
+MOE_SPEC = [(0, 30, 3), (1, 5, 4), (0, 9, 2), (2, 6, 3), (1, 17, 2),
+            (2, 12, 3)]
+
+
+def _moe_cfg(get):
+    return dataclasses.replace(get("deepseek-moe-16b").reduced(),
+                               first_k_dense=1, n_layers=3, dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    jcfg, tcfg = _moe_cfg(jget_config), _moe_cfg(get_config)
+    jp = jinit_serve_params(jcfg, jax.random.PRNGKey(1), dtype="float32")
+    rng = np.random.default_rng(11)
+    jm = jax.tree.map(lambda m: jnp.asarray(
+        (rng.random(m.shape) > 0.4).astype(np.float32)),
+        jmasks.init_unit_masks(jcfg, N_CLIENTS))
+    to_t = lambda t: from_numpy(jax.tree.map(np.asarray, t), "cpu")
+    prompts = [rng.integers(0, jcfg.vocab_size, pl).astype(np.int32)
+               for _, pl, _ in MOE_SPEC]
+    return jcfg, tcfg, jp, to_t(jp), jm, to_t(jm), prompts
+
+
+@pytest.mark.parametrize("mixed", [False, True],
+                         ids=["fold-per-client", "gates-mixed"])
+def test_moe_engine_tokens_and_stats_equal(moe_setup, mixed):
+    """The FIFO engine on the MoE stack in both batching modes: the
+    tokens and counting stats of the reference's same engine (each
+    batch's capacity follows its padded length on both sides)."""
+    jcfg, tcfg, jp, tp, jm, tm, prompts = moe_setup
+    spec = dict(enumerate(MOE_SPEC))
+
+    def serve(engine_cls, request_cls, cfg, params, masks, **kw):
+        eng = engine_cls(cfg, params, masks, max_batch=3, fold_cache_size=2,
+                         mixed_batches=mixed, **kw)
+        for i, ((c, _, mn), p) in enumerate(zip(MOE_SPEC, prompts)):
+            eng.submit(request_cls(i, c, p, mn))
+        return {r.req_id: r.output for r in eng.run_until_idle()}, eng.stats
+    from repro_torch.models.moe import _capacity
+    assert (_capacity(30, tcfg), _capacity(6, tcfg)) == (24, 8)
+    want, jstats = serve(JServeEngine, JRequest, jcfg, jp, jm)
+    got, tstats = serve(ServeEngine, Request, tcfg, tp, tm, device="cpu")
+    assert sorted(got) == sorted(want) == list(spec)
+    for i in want:
+        assert got[i].shape == (spec[i][2],)
+        np.testing.assert_array_equal(got[i], np.asarray(want[i]))
+    for name in COUNTERS:
+        assert getattr(tstats, name) == getattr(jstats, name), name
+
+
+def test_moe_serve_session_tokens_equal(moe_setup):
+    """The session CLI's path on the MoE stack: client 1's expert and
+    head masks folded, greedy decode."""
+    jcfg, tcfg, jp, tp, jm, tm, _ = moe_setup
+    jp = dict(jp, server=jmasks.fold_unit_masks(jcfg, jp["server"], jm, 1))
+    tp = dict(tp, server=tmasks.fold_unit_masks(tcfg, tp["server"], tm, 1))
+    prompts = np.random.default_rng(5).integers(
+        0, jcfg.vocab_size, (3, 10)).astype(np.int32)
+    want = np.asarray(jserve.serve_session(jcfg, jp, jnp.asarray(prompts),
+                                           5))
+    got = tserve.serve_session(tcfg, tp, prompts, 5, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_moe_serve_cli_runs_on_the_cpu(capsys):
+    """A ``--reduced --device cpu`` session of deepseek-moe-16b through
+    the serve CLI, its expert masks folded."""
+    out = tserve.main(["--arch", "deepseek-moe-16b", "--reduced", "--device",
+                       "cpu", "--fold-mask", "--batch", "2", "--prompt-len",
+                       "8", "--gen", "3"])
+    assert out.shape == (2, 3)
+    cfg = get_config("deepseek-moe-16b").reduced()
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
+    assert "folded client 0 mask" in capsys.readouterr().out
