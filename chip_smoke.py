@@ -79,7 +79,9 @@ time:
    512, with its totals on a line of their own), at every prefill shape
    of phase 7b's and 7c's runs (``arch_runs()``: hd 128 and 96, GQA
    32/8, MHA 16/16 and 32/32 and qwen3's group of 8, 32/4; totals per
-   head dim) and at phase 6's f32 shapes, against its plain version, with
+   head dim), at phase 7d's jamba session shape (32/8, hd 128) and at
+   phase 6's f32 shapes (the reduced jamba's 4/4 at hd 64 among them),
+   against its plain version, with
    device times,
    one ``scaled_dot_product_attention`` call as the library yardstick
    (and the kernel's ratio to it), host times per call of the wrapper
@@ -90,10 +92,14 @@ time:
    and by less on average;
 6. qwen2-0.5b, granite-3-8b, phi3-mini-3.8b, deepseek-moe-16b (its
    dense layer 0 on the client, an MoE layer on the server) and
-   qwen3-moe-30b-a3b at full width cut to 2 layers, strict fp32: a
+   qwen3-moe-30b-a3b and mamba2-370m at full width cut to 2 layers, and
+   jamba-v0.1-52b's reduced config (``m a m a``), strict fp32: a
    prefill and teacher-forced decode steps on the card and on the CPU,
    compared (MoE: the smallest top-K router margin, and the margin of
-   any token the two devices route differently); then (qwen2-0.5b) a
+   any token the two devices route differently; SSM: the final mamba
+   states); one global train step of the reduced deepseek-moe-16b and
+   mamba2-370m on both (losses, router aux, Adam moments); then
+   (qwen2-0.5b) a
    ragged
    six-request trace of mixed clients through
    ``ContinuousEngine`` (3 slots), ``ServeEngine`` one request at a
@@ -130,6 +136,16 @@ time:
    qwen3-moe-30b-a3b (48 layers, 128 experts top-8, GQA 32/4, 61.1 GB
    of bf16 weights) through the session CLI alone; flash launches one a
    layer per prefill;
+7d. SSM and hybrid serving, bf16, each config's reckoned bytes printed
+   before it allocates and its peak after: mamba2-370m at full width
+   and depth (48 layers) through the session CLI and the mixed FIFO
+   engine on phase 7's 16 requests, which it splits into equal-length
+   sub-batches (each with its SSD chunk and carry blocks printed), a
+   prefill and a decode step profiled, and ``ContinuousEngine``'s
+   refusal; jamba-v0.1-52b at published widths cut to 16 layers (two
+   8-layer periods, 52.0 GB; a prefill and a decode step profiled from
+   params freed before the session) through the session CLI; flash
+   launches one an attention layer per prefill (jamba 2, mamba2 0);
 8. Table 1 through ``launch/compare.py`` and the baselines card vs CPU
    (phase 8);
 8b. the AdaSplit LM trainer (``repro_torch.launch.train``) on
@@ -147,9 +163,16 @@ time:
    refused by the flash wrapper; then 2 layers, strict fp32, 4 steps on
    the card and the CPU (equal selections, losses within
    ``LM_TRAIN_REL_TOL``);
+8c. MoE and SSM training as 8b (C=4, B=16, S=128, 20 steps in windows
+   of 10, both drivers, one step profiled): mamba2-370m at full width
+   and depth and deepseek-moe-16b at published widths cut to 2 layers
+   (its dense layer 0 on the client, one MoE layer on the server), each
+   state's reckoned size printed before it allocates, the router aux
+   loss beside the CE;
 9. a ``kernels`` JSON line (all eight kernels; flash's launches those of
-   every phase 7, 7b and 7c run, its times the hd-64 session and FIFO
-   totals; NT-Xent's and client Adam's launches include phase 8b's),
+   every phase 7, 7b, 7c and 7d run, its times the hd-64 session and FIFO
+   totals; NT-Xent's and client Adam's launches include phases 8b's and
+   8c's),
    then the final ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the repository around it, and imports nothing
@@ -177,6 +200,7 @@ ADAM_TOL = 1e-6                 # same f32 ops in the same order (-fmad=false)
 # function in other f32 ops, one ULP of |p| < 8 apart
 LIBRARY_ADAM_TOL = 1e-6
 N_CLIENTS = 32                  # phase 4's clients; phase 2's shapes follow
+SMI = "card not read"           # nvidia-smi's name and power limit, phase 1
 # flash attention against its plain version: both f32 math, other order
 # and exp2 for exp; bf16 output rounds to 8 bits (one step ~ 2**-8..2**-7
 # on values of order 1)
@@ -1749,7 +1773,7 @@ def profile_calls(fn, n, label, what, unit):
           f"{wall_us / n / 1e3:.3f} ms/{unit}, device busy "
           f"{busy / n / 1e3:.3f} ms/{unit}, busy share {busy / wall_us:.4f}, "
           f"{sum(d[2] for d in dev) // n} device ops/{unit} "
-          f"({n_markers - markers} of {n_markers} markers lost)")
+          f"({n_markers - markers} of {n_markers} markers lost; {SMI})")
     for key, us, count in sorted(dev, key=lambda d: -d[1])[:12]:
         print(f"    {us / n / 1e3:9.4f} ms/{unit} {count // n:5d} "
               f"calls/{unit}  {key[:90]}")
@@ -1927,10 +1951,12 @@ def lm_step_launches(state):
             "flash_attention": 0}
 
 
-def check_lm_kernels(cfg, gen):
+def check_lm_kernels(cfg, gen, ntxent=True):
     """The path's kernels at its shapes against their plain versions:
     NT-Xent at (C, b, proj_dim) with one label a cohort (``check_ntxent``:
-    forward, backward, the loss gradient vs float64 CPU autograd), and
+    forward, backward, the loss gradient vs float64 CPU autograd; only
+    with ``ntxent``, as phase 8c's configs give it the shape phase 8b
+    checked), and
     client Adam over the LM's own trainables (bf16 weights and
     gradients, float32 moments) through ``adam_multi`` as the step
     calls it, one launch per ``plan_launches`` group, bit-equal to
@@ -1945,7 +1971,8 @@ def check_lm_kernels(cfg, gen):
     C = LM_TRAIN["cohorts"]
     hp = types.SimpleNamespace(batch_size=LM_TRAIN["batch"] // C,
                                proj_dim=policy.proj_dim, tau=policy.tau)
-    check_ntxent(types.SimpleNamespace(n_classes=1), hp, gen, C=C)
+    if ntxent:
+        check_ntxent(types.SimpleNamespace(n_classes=1), hp, gen, C=C)
     state = init_train_state(cfg, C, policy, 1, device="cuda")
     params = tree_leaves(state["trainables"])
     del state
@@ -2033,15 +2060,15 @@ def check_lm_run(label, tr, counts, fetches, wall, peak):
     finite = all(m.isfinite(h["ce"]) and m.isfinite(h["l_client"])
                  for h in hist)
     tokens = steps * LM_TRAIN["batch"] * LM_TRAIN["seq"]
-    print(f"  [{label}] {steps} steps: {wall:.2f} s wall from the trainer's "
-          f"construction's end ({wall / steps * 1e3:.1f} ms/step, "
-          f"{tokens / wall:.0f} tokens/s, cold); {fetches} fetch(es) under "
-          f"sync_debug_mode=error, no other host sync; peak "
-          f"max_memory_allocated {peak:.2f} GiB; launches {got}")
+    print(f"  [{tr.cfg.name} {label}] {steps} steps: {wall:.2f} s wall from "
+          f"the trainer's construction's end ({wall / steps * 1e3:.1f} "
+          f"ms/step, {tokens / wall:.0f} tokens/s, cold); {fetches} fetch(es)"
+          f" under sync_debug_mode=error, no other host sync; peak "
+          f"max_memory_allocated {peak:.2f} GiB ({SMI}); launches {got}")
     for h in hist[::5]:
         print(f"    step {h['step']:2d} {h['phase']:6s} l_client="
-              f"{h['l_client']:.5f} ce={h['ce']:.5f} selected="
-              f"{h['selected']}")
+              f"{h['l_client']:.5f} ce={h['ce']:.5f} aux={h['aux']:.5f} "
+              f"selected={h['selected']}")
     if phases != ["local"] * n_local + ["global"] * (steps - n_local):
         raise AssertionError(f"[{label}] phases {phases}")
     if not finite:
@@ -2109,19 +2136,20 @@ def check_flash_refuses_grad():
     fa.reset_launches()
 
 
-def lm_trainer_phase(gen):
-    """Phase 8b; returns the launches of the two 20-step runs."""
+def lm_trainer_phase(gen, cfg, phase_8b=True):
+    """Phase 8b (``cfg`` qwen2-0.5b; with ``phase_8b`` the flash kernel's
+    grad refusal and the 2-layer card-vs-CPU run too) and each config of
+    phase 8c; returns the launches of the two 20-step runs."""
     import torch
-    from repro_torch.configs.base import get_config
-    cfg = get_config(SERVE_ARCH)
-    print(f"  {SERVE_ARCH}: {cfg.n_layers} layers, split after "
+    print(f"  {cfg.name}: {cfg.n_layers} layers, split after "
           f"{cfg.split_layer}, C={LM_TRAIN['cohorts']} B={LM_TRAIN['batch']}"
           f" S={LM_TRAIN['seq']}, bf16 params")
     t0 = time.perf_counter()
-    check_lm_kernels(cfg, gen)
+    check_lm_kernels(cfg, gen, ntxent=phase_8b)
     torch.cuda.empty_cache()
     print(f"  kernels at the path's shapes: {time.perf_counter() - t0:.2f} s")
-    check_flash_refuses_grad()
+    if phase_8b:
+        check_flash_refuses_grad()
     runs, launches = {}, {}
     for label, epoch_scan in (("per-step", False), ("windowed", True)):
         tr, counts, fetches, wall, peak = lm_train_run(cfg, epoch_scan)
@@ -2131,16 +2159,17 @@ def lm_trainer_phase(gen):
         runs[label] = list(tr.history)
         if label == "per-step":
             # one steady window of global steps, profiled (its ~12,000
-            # device ops a step take the profiler long to sum, so the
-            # window is short)
-            W = LM_PROFILED_WINDOW
+            # device ops a step, ~24,000 for mamba2, take the profiler
+            # long to sum, so the window is short: one step in 8c)
+            W = LM_PROFILED_WINDOW if phase_8b else 1
             t0 = time.perf_counter()
             prof = profile_calls(lambda: tr.run(W, local_frac=0.0,
                                                 log_every=W),
                                  1, "lm_train", "windows", "window")
             if prof:
                 tokens = W * LM_TRAIN["batch"] * LM_TRAIN["seq"]
-                print(f"  [per-step] steady global window of {W} steps, "
+                print(f"  [{cfg.name} per-step] steady global window of {W} "
+                      "steps, "
                       f"profiled: {prof['wall_ms'] / W:.2f} ms/step, "
                       f"{tokens / prof['wall_ms'] * 1e3:.0f} tokens/s, "
                       f"device busy {prof['busy_ms'] / W:.2f} ms/step, "
@@ -2159,7 +2188,58 @@ def lm_trainer_phase(gen):
           f"bit-equal {bit}")
     if not (same_sel and rel <= LM_DRIVER_TOL):
         raise AssertionError("LM trainer: the two drivers disagree")
-    lm_train_on_two_devices(cfg)
+    if phase_8b:
+        lm_train_on_two_devices(cfg)
+    return launches
+
+
+# phase 8c: MoE and SSM training as phase 8b runs it (C=4, B=16, S=128,
+# 20 steps in windows of 10, both drivers): mamba2-370m at full width and
+# depth, deepseek-moe-16b at published widths cut to 2 layers (the dense
+# layer 0 on the client, one MoE layer of 64 routed and 2 shared experts
+# on the server); a run's state must reckon to at most TRAIN_FIT_GIB
+TRAIN_ARCHS = (("mamba2-370m", 0), ("deepseek-moe-16b", 2))
+# bytes a trainable element holds at the peak (bf16 weight and grad, f32
+# moments, Adam's f32 staging), as phase 8b's qwen2 peak reads
+TRAIN_BYTES_PER_ELEMENT = 32
+TRAIN_FIT_GIB = 72
+
+
+def train_elements(cfg, C):
+    """The trainables of ``init_train_state(cfg, C)`` by the analytic
+    count (matrices and embeddings; norms, biases and masks left out):
+    C clients' embeddings and layers, the server's layers and LM head."""
+    import dataclasses
+    emb = cfg.padded_vocab() * cfg.d_model
+
+    def layers(n):      # the first n layers
+        return dataclasses.replace(cfg, n_layers=n, tie_embeddings=True) \
+            .param_count() - cfg.vocab_size * cfg.d_model
+    client = emb + layers(cfg.split_layer)
+    return C * client + layers(cfg.n_layers) - layers(cfg.split_layer) + emb
+
+
+def moe_ssm_trainer_phase(gen):
+    """Phase 8c; returns the launches of its runs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    launches = {}
+    for arch, layers in TRAIN_ARCHS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        n = train_elements(cfg, LM_TRAIN["cohorts"])
+        gib = n * TRAIN_BYTES_PER_ELEMENT / 2**30
+        print(f"  [{arch}] reckoned before allocating: {n / 1e9:.3f} B "
+              f"trainable elements x {TRAIN_BYTES_PER_ELEMENT} B = {gib:.2f} "
+              f"GiB at C={LM_TRAIN['cohorts']} ({SMI})")
+        if gib > TRAIN_FIT_GIB:
+            raise AssertionError(f"[{arch}] reckoned {gib:.2f} GiB > "
+                                 f"{TRAIN_FIT_GIB}")
+        for k, v in lm_trainer_phase(gen, cfg, phase_8b=False).items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -2181,8 +2261,20 @@ DENSE_ARCHS = ("granite-3-8b", "phi3-mini-3.8b", "olmo-1b")
 # through the session CLI alone
 MOE_ARCHS = ("deepseek-moe-16b", "qwen3-moe-30b-a3b")
 ALL_PATHS_ARCHS = ("granite-3-8b", "deepseek-moe-16b")
+# phase 7d: SSM and hybrid serving, bf16: mamba2-370m at full width and
+# depth through the session and the mixed FIFO engine on phase 7's 16
+# requests (split into equal-length sub-batches), its continuous refusal
+# asserted; jamba-v0.1-52b at published widths cut to JAMBA_LAYERS (two
+# 8-layer periods: 52.0 GB of bf16 weights; all 32 layers, ~103 GB, do
+# not fit one card) through the session alone
+SSM_ARCHS = ("mamba2-370m", "jamba-v0.1-52b")
+JAMBA_LAYERS = 16
 # phase 6's card-vs-CPU configs, full width cut to 2 layers, strict fp32
-TWO_DEVICE_ARCHS = (SERVE_ARCH, "granite-3-8b", "phi3-mini-3.8b") + MOE_ARCHS
+# (the reduced jamba, ``m a m a``, is checked beside them)
+TWO_DEVICE_ARCHS = (SERVE_ARCH, "granite-3-8b", "phi3-mini-3.8b") \
+    + MOE_ARCHS + ("mamba2-370m",)
+# flash totals on lines of their own (the `kernels` line keeps qwen2's)
+OWN_TOTALS = MOE_ARCHS + ("jamba-v0.1-52b",)
 
 
 def serving_runs():
@@ -2218,6 +2310,34 @@ def serving_runs():
                 "cache_len": 576}}}
 
 
+def attn_layers(cfg) -> int:
+    """The attention layers of ``cfg``'s stack: the flash launches of one
+    prefill (a pure SSM stack has none; jamba one of each 8)."""
+    return sum(bool(cfg.n_heads) and cfg.is_attn_layer(i)
+               for i in range(cfg.n_layers))
+
+
+def ssm_cfg(arch):
+    """Phase 7d's config of ``arch``: jamba cut to ``JAMBA_LAYERS``."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if arch == "jamba-v0.1-52b":
+        cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS)
+    return cfg
+
+
+def ssm_runs(arch):
+    """Phase 7d's runs: mamba2's session and mixed FIFO engine (phase 7's
+    16 requests), jamba's session alone; each profiled (jamba's
+    prefill and decode before its session, from params freed after)."""
+    runs = serving_runs()
+    runs["engines"] = {k: v for k, v in runs["engines"].items()
+                       if arch == "mamba2-370m" and k == "mixed"}
+    runs["continuous"] = {}
+    return runs
+
+
 def arch_runs(arch):
     """Phase 7b's and 7c's runs of ``arch``: phase 7's session and, for
     ``ALL_PATHS_ARCHS``, the mixed (gated) FIFO engine and the continuous
@@ -2240,7 +2360,8 @@ def session_argv(cfg, runs):
     s = runs["session"]
     return ["--arch", cfg.name, "--fold-mask", "--client", str(s["client"]),
             "--n-clients", str(s["n_clients"]), "--batch", str(s["batch"]),
-            "--prompt-len", str(s["prompt_len"]), "--gen", str(s["gen"])]
+            "--prompt-len", str(s["prompt_len"]), "--gen", str(s["gen"]),
+            "--n-layers", str(cfg.n_layers)]
 
 
 def make_requests(spec, vocab_size, seed=1):
@@ -2436,7 +2557,7 @@ def check_flash(cases, gen):
             kind = "B=1 admission" if ADMISSION in label else \
                 "session and FIFO prefill"
             # an MoE config's shapes total on lines of their own
-            kind += "".join(f" of {a}" for a in MOE_ARCHS
+            kind += "".join(f" of {a}" for a in OWN_TOTALS
                             if label.startswith(a + " "))
             into = totals.setdefault((hd, kind), dict.fromkeys(keys, 0.0))
             for key, val in zip(keys, (ms, plain_ms, lib_ms, bms, nbytes,
@@ -2451,13 +2572,15 @@ def check_flash(cases, gen):
               f"sdpa_ms={t['library_ms']:.4f} "
               f"ms/sdpa={t['ms'] / t['library_ms']:.3f} "
               f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
-    return dict(totals[(64, "session and FIFO prefill")], max_abs_err=worst)
+    return dict(totals.get((64, "session and FIFO prefill"), {}),
+                max_abs_err=worst)
 
 
-def lm_on_two_devices(arch):
-    """``arch`` at full width cut to 2 layers, strict fp32: one prefill
-    and teacher-forced decode steps on the card and on the CPU, from
-    the same params (the port's own init, on the card)."""
+def lm_on_two_devices(arch, cfg=None):
+    """``arch`` at full width cut to 2 layers (or ``cfg``), strict fp32:
+    one prefill and teacher-forced decode steps on the card and on the
+    CPU, from the same params (the port's own init, on the card); an SSM
+    stack's final mamba states compared too."""
     import dataclasses
     import numpy as np
     import torch
@@ -2467,8 +2590,9 @@ def lm_on_two_devices(arch):
     from repro_torch.models import decode as dec
     from repro_torch.weights import tree_map
     two = LM_TWO_DEVICE
-    cfg = dataclasses.replace(get_config(arch),
-                              n_layers=two["n_layers"], dtype="float32")
+    cfg = cfg or dataclasses.replace(get_config(arch),
+                                     n_layers=two["n_layers"],
+                                     dtype="float32")
     B, S = two["batch"], two["prompt_len"]
     gpu = init_serve_params(cfg, 0, "float32", device="cuda")
     cpu = tree_map(lambda t: t.cpu(), gpu)
@@ -2486,17 +2610,73 @@ def lm_on_two_devices(arch):
                 lg, cg = dec.decode_step(cfg, gpu, tok.cuda(), cg, S + t - 1)
                 lc, cc = dec.decode_step(cfg, cpu, tok, cc, S + t - 1)
             worst, same, tok = logits_step(cfg, lg, lc, worst, same, steps)
-    print(f"  [{arch}] prefill B={B} S={S} + {two['decode']} decode steps, "
-          f"{two['n_layers']} layers of width {cfg.d_model} (hd "
+    state = ""
+    if cfg.ssm_state:
+        st = []
+        for side in ("client", "server"):
+            for sa, sb in zip(cg[side], cc[side]):
+                st += [(sa[j]["mixer"]["state"], sb[j]["mixer"]["state"])
+                       for j in sa if "state" in sa[j]["mixer"]]
+        err = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                  for a, b in st)
+        state = (f"; final SSM states of {len(st)} segment positions max "
+                 f"rel err {err:.3e}")
+        worst = max(worst, err)
+    print(f"  [{cfg.name}] prefill B={B} S={S} + {two['decode']} decode "
+          f"steps, {cfg.n_layers} layers of width {cfg.d_model} (hd "
           f"{cfg.head_dim}): flash launches "
           f"on the card {launches}; logits max rel err {worst:.3e}; greedy "
           f"tokens equal on both devices: {same} (card's: {steps})"
-          + route_margins(cfg, routes))
-    if launches != two["n_layers"]:
+          + state + route_margins(cfg, routes))
+    if launches != attn_layers(cfg):
         raise AssertionError(f"[{arch}] card prefill launched flash "
                              f"{launches} times")
     if not (worst < LM_REL_TOL and same):
         raise AssertionError(f"[{arch}] card and CPU LM steps disagree")
+
+
+def train_step_on_two_devices(arch):
+    """One global train step of ``arch``'s reduced config (float32, C=2
+    cohorts of 4 rows, S=16) on the card and on the CPU from the card's
+    state: the client loss, CE and router aux within LM_TRAIN_REL_TOL,
+    the new Adam moments within LM_TRAIN_REL_TOL of each leaf's largest
+    magnitude."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.weights import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    C, b, S = 2, 4, 16
+    pol = tsteps.LaunchPolicy(param_dtype="float32")
+    fn = tsteps.build_train_step(cfg, InputShape("t", S, C * b, "train"),
+                                 pol, n_cohorts=C)
+    state = tsteps.init_train_state(cfg, C, pol, 0, device="cuda")
+    cpu_state = tree_map(lambda t: t.cpu(), state)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (C * b, S)),
+             "labels": rng.integers(0, cfg.vocab_size, (C * b, S)),
+             "seq_class": np.repeat(np.arange(C), b)}
+    batch = {k: torch.from_numpy(v.astype(np.int32)) for k, v in
+             batch.items()}
+    batch["select"] = torch.ones((C,), dtype=torch.float32)
+    new, mg = fn(state, {k: v.cuda() for k, v in batch.items()})
+    new_c, mc = fn(cpu_state, batch)
+    loss = max(abs(float(mg[k]) - float(mc[k])) / max(abs(float(mc[k])),
+                                                      1e-30)
+               for k in ("l_client", "ce", "aux"))
+    mom = max(float((a.cpu() - c).abs().max()) / (float(c.abs().max()) or 1)
+              for key in ("mu", "nu")
+              for a, c in zip(tree_leaves(new["opt"][key]),
+                              tree_leaves(new_c["opt"][key])))
+    terms = " ".join(f"{k}={float(mc[k]):.5f}"
+                     for k in ("l_client", "ce", "aux"))
+    print(f"  [{cfg.name} reduced train step] {terms}: card vs CPU losses "
+          f"max rel diff {loss:.3e}, moments {mom:.3e} (tol "
+          f"{LM_TRAIN_REL_TOL})")
+    if not (loss <= LM_TRAIN_REL_TOL and mom <= LM_TRAIN_REL_TOL):
+        raise AssertionError(f"[{arch}] card and CPU train steps disagree")
 
 
 def logits_step(cfg, lg, lc, worst, same, steps):
@@ -2926,7 +3106,7 @@ def peak_memory(tag):
     reset it."""
     import torch
     print(f"{tag} max_memory_allocated="
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({SMI})")
     torch.cuda.reset_peak_memory_stats()
 
 
@@ -2935,10 +3115,12 @@ def run_serving(cfg, runs, device="cuda"):
     engine in each mode of ``runs["engines"]`` and the continuous runs
     of ``runs["continuous"]``, each followed by its peak device memory
     (and, for an MoE config, its share of dropped assignments); then,
-    where ``runs["profile"]``, a profiled prefill and decode step.  The
-    engines' own params are built only where a run beside the session
-    needs them (the session CLI builds its own).  Returns per run its
-    flash launches and prefill calls."""
+    where ``runs["profile"]``, a profiled prefill and decode step (taken
+    before the session, and the params freed, where no engine runs:
+    jamba's 52 GB do not fit twice).  The engines' own params are built
+    only where a run beside the session needs them (the session CLI
+    builds its own).  Returns per run its flash launches and prefill
+    calls."""
     import dataclasses
     import numpy as np
     import torch
@@ -2960,6 +3142,12 @@ def run_serving(cfg, runs, device="cuda"):
         tserve.serve_session(cfg, params, warm, 2, device=device)  # warm-up
     out = {}
     s = runs["session"]
+    if runs["profile"] and not (runs["engines"] or runs["continuous"]):
+        profile_session(cfg, params, s, device)
+        del params, masks
+        torch.cuda.empty_cache()
+        peak_memory(f"  [{cfg.name} profile] (its params freed after)")
+        runs, own = dict(runs, profile=False), False
     fa.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     count_drops(cfg)
@@ -2974,7 +3162,7 @@ def run_serving(cfg, runs, device="cuda"):
           f"prefill_ms={pre[0] * 1e3} decode_ms_per_token={dec_ms} "
           f"session_s={ses[0]} flash_launches="
           f"{fa.LAUNCHES['flash_attention']} prefills={len(pre)}"
-          f"{drops(cfg)}")
+          f"{drops(cfg)} ({SMI})")
     peak_memory(f"  [{cfg.name} session] (its own params, init and fold "
                 "included" + (", beside the engines')" if own else ")"))
     out["session"] = (fa.LAUNCHES["flash_attention"], len(pre))
@@ -3008,7 +3196,7 @@ def run_serving(cfg, runs, device="cuda"):
               f"decode_ms_per_step={(wall - sum(pre)) / st.decode_steps * 1e3}"
               f" latency_s p50={np.median(lat)} max={lat.max()} "
               f"occupancy={st.occupancy} flash_launches="
-              f"{fa.LAUNCHES['flash_attention']}{drops(cfg)}")
+              f"{fa.LAUNCHES['flash_attention']}{drops(cfg)} ({SMI})")
         print(f"  [{cfg.name} engine {mode}] EngineStats "
               + json.dumps(dataclasses.asdict(st)))
         peak_memory(f"  [{cfg.name} engine {mode}]")
@@ -3026,7 +3214,16 @@ def run_serving(cfg, runs, device="cuda"):
     if not runs["profile"]:
         return out
 
-    # where the time goes: the session's prefill and its decode steps
+    profile_session(cfg, params, s, device)
+    return out
+
+
+def profile_session(cfg, params, s, device):
+    """Where the time goes: the session's prefill and its decode steps,
+    profiled."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode as dec
     S = s["prompt_len"]
     prompts = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (s["batch"], S)).astype(np.int32)).to(device)
@@ -3037,32 +3234,102 @@ def run_serving(cfg, runs, device="cuda"):
                                   cache_len=S + s["gen"] + 1)
     profile_calls(prefill, 2, f"{cfg.name} session prefill", "prefills",
                   "prefill")
-    lg, cache = held["out"]
+    lg, cache = held.pop("out")
     tok = lg.argmax(-1).to(torch.int32)
     profile_calls(lambda: dec.decode_step(cfg, params, tok, cache, S), 4,
                   f"{cfg.name} session decode", "decode steps", "step")
-    return out
 
 
 def serve_archs(archs):
     """``run_serving`` for each (config, runs) of ``archs`` in turn, each
-    run's flash launches held to one a layer per prefill; each arch's
+    run's flash launches held to one an attention layer per prefill
+    (``attn_layers``); each arch's
     params, caches and engines freed (and the cache emptied) before the
     next is built.  Returns the flash launches of all runs."""
     import torch
     total = 0
     for arch, (cfg, runs) in archs.items():
         served = run_serving(cfg, runs)
+        per = attn_layers(cfg)
         for run, (n, prefills) in served.items():
-            if n != cfg.n_layers * prefills:
+            if n != per * prefills:
                 raise AssertionError(f"[{arch} {run}] {n} flash launches for"
-                                     f" {prefills} prefills of "
-                                     f"{cfg.n_layers} layers")
-            print(f"  [{arch} {run}] flash launches {n} = {cfg.n_layers} "
+                                     f" {prefills} prefills of {per} "
+                                     "attention layers")
+            print(f"  [{arch} {run}] flash launches {n} = {per} "
                   f"per prefill x {prefills} prefills")
         total += sum(n for n, _ in served.values())
         del served
         torch.cuda.empty_cache()
+    return total
+
+
+def serving_bytes(cfg):
+    """Reckoned bf16 bytes of a session before allocating: the weights
+    (the LM head apart from the embedding, padded vocab) and the copies
+    ``fold_unit_masks`` makes of the server's gated projections (``wo``,
+    ``out_proj``, ``w_down``; an MoE layer's every expert's)."""
+    from repro_torch.models.transformer import model_plan
+    d = cfg.d_model
+    weights = cfg.param_count() + 2 * cfg.padded_vocab() * d \
+        - cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    fold = 0
+    for seg in model_plan(cfg)["server_segments"]:
+        for desc in seg.body:
+            fold += seg.n_rep * d * (
+                cfg.n_heads * cfg.head_dim if desc.mixer == "attn"
+                else cfg.d_inner)
+            fold += seg.n_rep * d * {"dense": cfg.d_ff, "none": 0,
+                                     "moe": cfg.n_experts * cfg.moe_d_ff
+                                     }[desc.ffn]
+    return 2 * weights, 2 * fold
+
+
+def fifo_sub_batches(cfg, runs):
+    """The mixed FIFO engine's prefills on an SSM stack: each batch of
+    ``runs``'s requests split into equal-length sub-batches, in the order
+    of their first request; per sub-batch (rows, L, the SSD chunk, the
+    chunks, the carry's blocks a layer)."""
+    from repro_torch.models.ssm import CARRY_BLOCK, chunk_size
+    out = []
+    for _, _, S, lens in fifo_shapes(runs["requests"], "mixed",
+                                     **runs["engines"]["mixed"]):
+        for L in dict.fromkeys(lens or [S]):
+            rows = (lens or [S]).count(L)
+            chunk = chunk_size(cfg, L)
+            nc = L // chunk
+            out.append((rows, L, chunk, nc, -(-nc // CARRY_BLOCK)
+                        if nc > 1 else 0))
+    return out
+
+
+def ssm_serving_phase():
+    """Phase 7d: mamba2-370m and jamba-v0.1-52b (16 layers) served in
+    bf16, each run's reckoned bytes printed before it allocates and its
+    peak after; returns the flash launches of all runs."""
+    import torch
+    from repro_torch.serve import ContinuousEngine
+    total = 0
+    for arch in SSM_ARCHS:
+        cfg, runs = ssm_cfg(arch), ssm_runs(arch)
+        weights, fold = serving_bytes(cfg)
+        print(f"  [{arch}] {cfg.n_layers} layers (split after "
+              f"{cfg.split_layer}), {attn_layers(cfg)} attention: reckoned "
+              f"before allocating {weights / 1e9:.2f} GB of bf16 weights, "
+              f"+{fold / 1e9:.2f} GB folded server projections ({SMI})")
+        if runs["engines"]:
+            subs = fifo_sub_batches(cfg, runs)
+            print(f"  [{arch}] the FIFO trace's {len(runs['requests'])} "
+                  f"requests in {len(subs)} equal-length sub-batches "
+                  "(rows, L, chunk, chunks, carry blocks a layer): "
+                  f"{subs}")
+            try:
+                ContinuousEngine(cfg, None, device="cuda")
+            except ValueError as e:
+                print(f"  [{arch}] ContinuousEngine refuses: {e}")
+            else:
+                raise AssertionError(f"ContinuousEngine took {arch}")
+        total += serve_archs({arch: (cfg, runs)})
     return total
 
 
@@ -3087,6 +3354,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    global SMI
+    SMI = smi
     from repro_torch.kernels import _build
     from repro_torch.weights import strict_fp32
     strict_fp32()
@@ -3159,31 +3428,44 @@ def main() -> int:
     phase_done("4b")
 
     # phase 5 ---------------------------------------------------------
+    import dataclasses
     lm = get_config(SERVE_ARCH)
     serving = serving_runs()
     dense = {arch: (get_config(arch), arch_runs(arch))
              for arch in DENSE_ARCHS}
     moe = {arch: (get_config(arch), arch_runs(arch)) for arch in MOE_ARCHS}
+    jamba = "jamba-v0.1-52b"
+    jamba_reduced = dataclasses.replace(get_config(jamba).reduced(),
+                                        dtype="float32")
     print(f"phase 5: flash attention against its plain version, at "
           f"phase 7's prefill shapes ({SERVE_ARCH}, hd 64; the continuous "
           f"runs' B=1 admissions too), phase 7b's ({', '.join(DENSE_ARCHS)};"
           f" hd 128 and 96), phase 7c's ({', '.join(MOE_ARCHS)}; hd 128, "
-          "16/16 and 32/4) and phase 6's f32 ones")
+          f"16/16 and 32/4), phase 7d's ({jamba} at {JAMBA_LAYERS} layers; "
+          "hd 128, 32/8) and phase 6's f32 ones")
     cases = flash_cases(lm, serving, fp32_prefill_shapes()
                         + [two_device_shape()])
     for arch, (cfg_d, runs_d) in {**dense, **moe}.items():
         cases += flash_cases(cfg_d, runs_d, [two_device_shape()]
                              if arch in TWO_DEVICE_ARCHS else [], arch + " ")
+    cases += flash_cases(ssm_cfg(jamba), ssm_runs(jamba), [], jamba + " ")
+    cases += [(jamba_reduced, f"{jamba} reduced {sh[0]}") + sh[1:]
+              + (torch.float32,) for sh in [two_device_shape()]]
     flash = check_flash(cases, gen)
     phase_done(5)
 
     # phase 6 ---------------------------------------------------------
     print(f"phase 6: {', '.join(TWO_DEVICE_ARCHS)} prefill and decode on "
-          "the card and on the CPU, and the continuous, solo and mixed FIFO "
-          f"engines on the card ({SERVE_ARCH}) (full width, 2 layers, "
-          "strict fp32)")
+          "the card and on the CPU (full width, 2 layers, strict fp32), "
+          f"{jamba} reduced (m a m a) likewise, one train step of the "
+          "reduced deepseek-moe-16b and mamba2-370m likewise, and the "
+          "continuous, solo and mixed FIFO engines on the card "
+          f"({SERVE_ARCH})")
     for arch in TWO_DEVICE_ARCHS:
         lm_on_two_devices(arch)
+    lm_on_two_devices(jamba, jamba_reduced)
+    for arch in ("deepseek-moe-16b", "mamba2-370m"):
+        train_step_on_two_devices(arch)
     engines_agree_fp32()
     phase_done(6)
 
@@ -3218,6 +3500,15 @@ def main() -> int:
     launches["flash_attention"] += serve_archs(moe)
     phase_done("7c")
 
+    # phase 7d --------------------------------------------------------
+    print(f"phase 7d: SSM and hybrid serving, bf16: {SSM_ARCHS[0]} (48 "
+          "layers) through the session CLI and the mixed FIFO engine "
+          "(equal-length sub-batches), its ContinuousEngine refusal; "
+          f"{jamba} at published widths, {JAMBA_LAYERS} layers, through the "
+          "session CLI")
+    launches["flash_attention"] += ssm_serving_phase()
+    phase_done("7d")
+
     # phase 8 ---------------------------------------------------------
     print(f"phase 8: Table 1 (Mixed-NonIID) at lenet-cifar's published "
           f"widths, C={N_CLIENTS}: the six baselines and two AdaSplit "
@@ -3230,10 +3521,18 @@ def main() -> int:
     # phase 8b --------------------------------------------------------
     print(f"phase 8b: the AdaSplit LM trainer on {SERVE_ARCH} at full "
           "width, both drivers, and card vs CPU at 2 layers")
-    lm_launches = lm_trainer_phase(gen)
+    lm_launches = lm_trainer_phase(gen, lm)
     for k in ("ntxent_stats", "ntxent_backward", "client_adam"):
         launches[k] += lm_launches[k]
     phase_done("8b")
+
+    # phase 8c --------------------------------------------------------
+    print("phase 8c: MoE and SSM training as phase 8b: mamba2-370m at full "
+          "width and depth, deepseek-moe-16b at published widths, 2 layers")
+    lm_launches = moe_ssm_trainer_phase(gen)
+    for k in ("ntxent_stats", "ntxent_backward", "client_adam"):
+        launches[k] += lm_launches[k]
+    phase_done("8c")
 
     zero = [k for k, v in launches.items() if v == 0]
     if zero:

@@ -70,7 +70,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.time()
-    print(cs.lm_trainer_phase(gen))
+    print(cs.lm_trainer_phase(gen, cfg))
     print(f"phase 8b wall {time.time() - t0:.2f} s")
     print(f"profiler sessions: {cs.MARKERS_LOST}")
     return 0

@@ -1,13 +1,14 @@
 """Config system of the port: the ``ModelConfig`` fields the LeNet path
-and the decoder-only LM path (dense and MoE) read, and the registry.
+and the decoder-only LM path (dense, MoE, SSM and hybrid) read, and the
+registry.
 
 A copy of the reference's ``configs/base.py`` cut to ``InputShape``,
-the conv backbone and the dense and MoE LM stacks: the M-RoPE, SSM and
-encoder-decoder fields and branches are left out (their slices bring
-them), in ``param_count`` too; so is the table of the assigned input
-shapes, which only the dry run reads.  ``attn_layer_period`` stays at 0
-on every registered config and only keeps ``is_attn_layer`` and
-``split_layer`` the reference's functions.
+the conv backbone and the dense, MoE, SSM and hybrid LM stacks: the
+M-RoPE and encoder-decoder fields and branches are left out (their
+slices bring them), in ``param_count`` too; so is the table of the
+assigned input shapes, which only the dry run reads.  The hybrid
+interleave (``attn_layer_period``) is jamba's: attention on one layer
+of each period, mamba on the rest.
 """
 from __future__ import annotations
 
@@ -64,7 +65,15 @@ class ModelConfig:
     first_k_dense: int = 0  # deepseek: first layer(s) dense
     moe_capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
-    # hybrid interleave (0 on every registered config)
+
+    # SSM (mamba2 / jamba mamba layers)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_ngroups: int = 1
+    ssm_conv_kernel: int = 4
+    ssm_chunk: int = 256
+    # hybrid: attention on layers where (i % period) == offset; 0 = all attn
     attn_layer_period: int = 0
     attn_layer_offset: int = 0
 
@@ -99,17 +108,37 @@ class ModelConfig:
         return (i % self.moe_layer_period) == self.moe_layer_offset
 
     def is_attn_layer(self, i: int) -> bool:
+        if self.ssm_state and self.attn_layer_period == 0 and self.n_heads == 0:
+            return False  # pure SSM
         if self.attn_layer_period == 0:
             return True
         return (i % self.attn_layer_period) == self.attn_layer_offset
+
+    @property
+    def d_inner(self) -> int:  # mamba inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_state else 0
 
     # padded vocab so a sharded vocab axis always divides it
     def padded_vocab(self, multiple: int = 256) -> int:
         return ((self.vocab_size + multiple - 1) // multiple) * multiple
 
+    def supports_long_context(self) -> str:
+        """'native' (a pure SSM stack: sub-quadratic), 'windowed' (needs
+        a sliding window at long_500k), 'n/a' (the conv backbone)."""
+        if self.is_conv:
+            return "n/a"
+        if self.ssm_state and self.attn_layer_period == 0 and self.n_heads == 0:
+            return "native"
+        return "windowed"
+
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant: <=2 layers, d_model<=256, <=4 heads, <=4
-        experts."""
+        """Smoke-test variant: <=2 layers (a hybrid: 4, one ``m a m a``
+        pattern), d_model<=256, <=4 heads, <=4 experts, SSM state <=16,
+        SSM head dim <=32, SSM chunk 32."""
         d_model = min(self.d_model, 256) or 64
         n_heads = min(self.n_heads, 4)
         head_dim = max(16, d_model // max(n_heads, 1)) if n_heads else 0
@@ -127,6 +156,10 @@ class ModelConfig:
             n_shared_experts=min(self.n_shared_experts, 1),
             experts_per_token=min(self.experts_per_token, 2),
             first_k_dense=min(self.first_k_dense, 0),
+            ssm_state=min(self.ssm_state, 16),
+            ssm_headdim=(min(self.ssm_headdim, 32) if self.ssm_state
+                         else self.ssm_headdim),
+            ssm_chunk=32,
             conv_channels=tuple(min(c, 16) for c in self.conv_channels),
         )
         if self.attn_layer_period:
@@ -136,7 +169,9 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding included once): the
-        reference's conv, dense and MoE branches."""
+        reference's conv, dense, MoE and SSM branches (a mamba layer
+        counts its projections and conv weights, as the reference's
+        does)."""
         if self.is_conv:
             # rough lenet-style count
             total, cin = 0, 3
@@ -151,7 +186,13 @@ class ModelConfig:
             + self.n_heads * self.head_dim * d
         total = emb + (0 if self.tie_embeddings else emb)
         for i in range(self.n_layers):
-            total += per_attn if self.n_heads else 0
+            if self.ssm_state and not self.is_attn_layer(i):
+                din, gn = self.d_inner, self.ssm_ngroups * self.ssm_state
+                total += d * (2 * din + 2 * gn + self.ssm_nheads)
+                total += (din + 2 * gn) * self.ssm_conv_kernel
+                total += din * d
+            elif self.n_heads:
+                total += per_attn
             if self.is_moe_layer(i):
                 total += self.n_experts * 3 * d * self.moe_d_ff
                 total += self.n_shared_experts * 3 * d * self.moe_d_ff
@@ -171,7 +212,8 @@ class ModelConfig:
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 ARCH_MODULES = ["lenet_cifar", "qwen2_0_5b", "olmo_1b", "granite_3_8b",
-                "phi3_mini_3_8b", "deepseek_moe_16b", "qwen3_moe_30b_a3b"]
+                "phi3_mini_3_8b", "deepseek_moe_16b", "qwen3_moe_30b_a3b",
+                "mamba2_370m", "jamba_v0_1_52b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

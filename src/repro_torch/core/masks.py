@@ -5,7 +5,8 @@ the transformer half (port of ``repro.core.masks``).
   transforming the params before the forward (``apply_scalar_masks``),
   so grads are masked by the chain rule — exactly eq. 7.
 * ``per_unit`` — one mask value per conv output channel / FC hidden
-  unit / attention head / MLP hidden unit / expert, applied in
+  unit / attention head / MLP hidden unit / expert / mamba inner
+  channel, applied in
   activation space as gates, or folded into the server weights for
   serving (``fold_unit_masks``).
 
@@ -30,11 +31,8 @@ from repro_torch.weights import to_host, tree_leaves, tree_map
 def _seg_unit_masks(cfg, seg: Segment, n_clients: int, device):
     def one(desc):
         m = {}
-        if desc.mixer != "attn":
-            raise NotImplementedError("SSM mixer masks come with the "
-                                      "SSM/hybrid slice")
-        m["mixer"] = torch.ones((n_clients, seg.n_rep, cfg.n_heads),
-                                device=device)
+        units = cfg.n_heads if desc.mixer == "attn" else cfg.d_inner
+        m["mixer"] = torch.ones((n_clients, seg.n_rep, units), device=device)
         if desc.ffn == "dense":
             m["ffn"] = torch.ones((n_clients, seg.n_rep, cfg.d_ff),
                                   device=device)
@@ -94,11 +92,11 @@ def fold_unit_masks(cfg, server_params, masks, client: int, *,
 
     Equivalent to gating at every step (gating a unit's output == scaling
     the rows of the following projection: the attention ``wo`` rows of
-    a head, the ``w_down`` rows of an MLP hidden unit, the whole
-    ``w_down`` of an expert), but paid ONCE
-    per serving session.  threshold > 0 binarises first.  Only ``wo``
-    and ``w_down`` are copied; every other leaf is shared with
-    ``server_params``."""
+    a head, the mamba ``out_proj`` row of an inner channel, the
+    ``w_down`` rows of an MLP hidden unit, the whole ``w_down`` of an
+    expert), but paid ONCE per serving session.  threshold > 0
+    binarises first.  Only ``wo``, ``out_proj`` and ``w_down`` are
+    copied; every other leaf is shared with ``server_params``."""
     gates = gates_for_client(masks, client)
     if threshold > 0:
         gates = binarize(gates, threshold)
@@ -110,11 +108,15 @@ def fold_unit_masks(cfg, server_params, masks, client: int, *,
             layer = dict(sp[j])
             g = gs[str(j)]
             if g.get("mixer") is not None:
-                gm = g["mixer"]                  # (n_rep, H)
+                gm = g["mixer"]          # (n_rep, H) attn, (n_rep, din) ssm
                 mixer = dict(layer["mixer"])
-                rows = gm.repeat_interleave(cfg.head_dim, dim=-1)
-                mixer["wo"] = mixer["wo"] * rows[..., None].to(
-                    mixer["wo"].dtype)
+                if desc.mixer == "attn":
+                    rows = gm.repeat_interleave(cfg.head_dim, dim=-1)
+                    mixer["wo"] = mixer["wo"] * rows[..., None].to(
+                        mixer["wo"].dtype)
+                else:
+                    mixer["out_proj"] = mixer["out_proj"] \
+                        * gm[..., None].to(mixer["out_proj"].dtype)
                 layer["mixer"] = mixer
             if g.get("ffn") is not None and "ffn" in layer:
                 gf = g["ffn"]                    # (n_rep, F) or (n_rep, E)

@@ -9,15 +9,20 @@ binary mask into the server weights ONCE and then serves plain steps.
 
 Usage (on the CUDA card by default; ``--device cpu`` runs the plain
 kernel versions; ``--arch`` one of ``configs.base.list_archs()``:
-deepseek-moe-16b, granite-3-8b, olmo-1b, phi3-mini-3.8b, qwen2-0.5b,
-qwen3-moe-30b-a3b; ``--fold-mask`` folds an MoE client's expert masks
-into its experts' ``w_down``):
+deepseek-moe-16b, granite-3-8b, jamba-v0.1-52b, mamba2-370m, olmo-1b,
+phi3-mini-3.8b, qwen2-0.5b, qwen3-moe-30b-a3b; ``--fold-mask`` folds an
+MoE client's expert masks into its experts' ``w_down`` and an SSM
+client's inner-channel masks into its mixers' ``out_proj``;
+``--n-layers`` cuts the depth, e.g. jamba's 32 layers, ~103 GB in bf16,
+to 16 on one 80 GB card; an SSM stack needs prompts of at least
+``ssm_conv_kernel - 1`` tokens):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
       --prompt-len 512 --gen 32 --batch 8 --fold-mask
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -63,6 +68,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's own)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
@@ -75,6 +83,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     params = init_serve_params(cfg, 0, device=args.device)
 
     if args.fold_mask:

@@ -14,7 +14,10 @@ The train step is the LM variant of the AdaSplit protocol:
   cohorts' projections go through the NT-Xent kernel as one (C, b, P)
   batch: one forward and one backward launch a step on the card.
 * server: chunked CE + lambda * L1 over the per-cohort structured
-  masks; the cohort selection enters as a (C,) ``select`` weight vector.
+  masks + ``router_aux_coef`` x the server's MoE router aux loss (0 for
+  a stack without a router; the client's aux stays out of the client
+  loss, as in the reference); the cohort selection enters as a (C,)
+  ``select`` weight vector.
 * one ``adam_update`` over the whole trainables (client order, one
   scalar step): ``plan_launches`` launches of the multi-tensor Adam
   kernel on the card.
@@ -81,10 +84,13 @@ def _cast_leaf(p, dt, shape=None):
 
 def arch_window(cfg, shape: InputShape) -> int:
     """Sliding window used for this (arch, shape): the config's own, or
-    the long-context window of a full-attention arch at ``long_500k``."""
+    the long-context window at ``long_500k`` of an arch that needs one
+    (``supports_long_context() == "windowed"``: not a pure SSM stack,
+    whose decode is native at any length)."""
     if cfg.sliding_window:
         return cfg.sliding_window
-    if shape.name == "long_500k" and not cfg.is_conv:
+    if shape.name == "long_500k" \
+            and cfg.supports_long_context() == "windowed":
         return LONG_CONTEXT_WINDOW
     return 0
 
@@ -116,10 +122,9 @@ def init_train_state(cfg, n_cohorts: int, policy: LaunchPolicy, seed=0, *,
     are cast to ``policy.param_dtype`` after the stacking (the stacked
     size decides, as the reference casts the stacked tree); the masks
     and the Adam moments stay float32."""
-    tfm.refuse_moe_training(cfg)
     gen = _generator(seed, device)
     dt = getattr(torch, policy.param_dtype)
-    cast = lambda t: _cast_leaf(t.to(device), dt)
+    cast = lambda t, shape=None: _cast_leaf(t.to(device), dt, shape)
     clients = [{"model": tfm.init_client_params(cfg, gen),
                 "proj": _proj_init(gen, cfg.d_model, policy.proj_dim)}
                for _ in range(n_cohorts)]
@@ -144,8 +149,9 @@ def build_train_step(cfg, shape: InputShape,
 
     batch: ``tokens``/``labels`` (B, S) int, ``seq_class`` (B,) int and
     ``select`` (C,) float32, on the state's device, rows cohort-major
-    (B = C x b).  metrics: ``l_client`` and ``ce``, 0-d float32 device
-    tensors (the means over the microbatch chunks)."""
+    (B = C x b).  metrics: ``l_client``, ``ce`` and ``aux`` (the server's
+    router aux loss, before its coefficient), 0-d float32 device tensors
+    (the means over the microbatch chunks)."""
     policy = policy or LaunchPolicy()
     C = n_cohorts
     B, S = shape.global_batch, shape.seq_len
@@ -187,19 +193,18 @@ def build_train_step(cfg, shape: InputShape,
                                    trainables["server"]["lm_head"]["table"],
                                    mlabels, cfg.vocab_size,
                                    chunk=policy.ce_chunk, weights=w)
-        # a dense stack's router aux loss is 0 (the MoE slice brings its
-        # router_aux_coef)
-        l_server = ce + policy.lam * l1_penalty(trainables["masks"]) + aux
-        return l_client + l_server, l_client, ce
+        l_server = ce + policy.lam * l1_penalty(trainables["masks"]) \
+            + cfg.router_aux_coef * aux
+        return l_client + l_server, (l_client, ce, aux)
 
     def grads_of(leaves, mtokens, mlabels, mseq_class, select, like):
         params = [l.detach().requires_grad_(True) for l in leaves]
-        loss, lc, ce = micro_loss(tree_unflatten(like, params), mtokens,
-                                  mlabels, mseq_class, select)
+        loss, terms = micro_loss(tree_unflatten(like, params), mtokens,
+                                 mlabels, mseq_class, select)
         g = torch.autograd.grad(loss, params, allow_unused=True)
         g = [torch.zeros_like(p) if gi is None else gi
              for p, gi in zip(params, g)]
-        return g, lc.detach(), ce.detach()
+        return g, [t.detach() for t in terms]
 
     def split(x):
         # (B, ...) = (C, b, ...) -> (n_micro, C*mb, ...)
@@ -213,24 +218,24 @@ def build_train_step(cfg, shape: InputShape,
         toks, labs = split(batch["tokens"]), split(batch["labels"])
         scls = split(batch["seq_class"])
         if n_micro == 1:
-            grads, lc, ce = grads_of(leaves, toks[0], labs[0], scls[0],
-                                     batch["select"], trainables)
+            grads, terms = grads_of(leaves, toks[0], labs[0], scls[0],
+                                    batch["select"], trainables)
         else:
             grads = [torch.zeros(l.shape, dtype=f32, device=l.device)
                      for l in leaves]
-            lc = ce = torch.zeros((), dtype=f32, device=leaves[0].device)
+            terms = [torch.zeros((), dtype=f32, device=leaves[0].device)] * 3
             for i in range(n_micro):
-                g, lci, cei = grads_of(leaves, toks[i], labs[i], scls[i],
-                                       batch["select"], trainables)
+                g, ti = grads_of(leaves, toks[i], labs[i], scls[i],
+                                 batch["select"], trainables)
                 grads = [a + gi for a, gi in zip(grads, g)]
-                lc, ce = lc + lci, ce + cei
+                terms = [a + t for a, t in zip(terms, ti)]
             grads = [g / n_micro for g in grads]
-            lc, ce = lc / n_micro, ce / n_micro
+            terms = [t / n_micro for t in terms]
         new_t, new_opt = adam_update(trainables,
                                      tree_unflatten(trainables, grads), opt,
                                      lr=policy.lr)
-        return {"trainables": new_t, "opt": new_opt}, {"l_client": lc,
-                                                       "ce": ce}
+        return ({"trainables": new_t, "opt": new_opt},
+                dict(zip(("l_client", "ce", "aux"), terms)))
 
     return train_step
 

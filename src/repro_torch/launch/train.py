@@ -91,7 +91,6 @@ class LMAdaSplitTrainer:
     def __init__(self, cfg, shape: InputShape, policy: LaunchPolicy, *,
                  n_cohorts=1, kappa=0.6, eta=0.6, gamma=0.87, seed=0,
                  epoch_scan=False, device="cuda", jitter=None, state=None):
-        tfm.refuse_moe_training(cfg)
         self.cfg, self.shape, self.policy = cfg, shape, policy
         self.kappa, self.eta, self.gamma = kappa, eta, gamma
         self.epoch_scan = epoch_scan
@@ -143,19 +142,20 @@ class LMAdaSplitTrainer:
             i += t.numel()
         return out
 
-    def _record(self, t, global_phase, m_lc, m_ce, m_sel, summary):
+    def _record(self, t, global_phase, m_lc, m_ce, m_aux, m_sel, summary):
         self.history.append({
             "step": t, "phase": "global" if global_phase else "local",
-            "l_client": float(m_lc), "ce": float(m_ce),
+            "l_client": float(m_lc), "ce": float(m_ce), "aux": float(m_aux),
             "selected": [int(c) for c in np.flatnonzero(m_sel)],
             **summary})
 
     def _drain(self, pending):
         """ONE host sync for a whole window of step metrics."""
-        keys = ("l_client", "ce", "select")
+        keys = ("l_client", "ce", "aux", "select")
+        n = len(keys)
         fetched = self._fetch([m[k] for _, _, _, m in pending for k in keys])
         for i, (t, g, summary, _) in enumerate(pending):
-            self._record(t, g, *fetched[3 * i:3 * i + 3], summary)
+            self._record(t, g, *fetched[n * i:n * i + n], summary)
         pending.clear()
 
     # -- drivers ---------------------------------------------------------
@@ -235,12 +235,12 @@ class LMAdaSplitTrainer:
             metrics = self._window_fn(carry, dict(zip(keys, vals)), jitters,
                                       gflags)
             self.state, self.ucb = carry["state"], carry["ucb"]
-            lc, ce, sel = self._fetch([metrics["l_client"], metrics["ce"],
-                                       metrics["select"]])
+            lc, ce, aux, sel = self._fetch(
+                [metrics[k] for k in ("l_client", "ce", "aux", "select")])
             for i in range(W):
                 self._bill_step(gflags[i], bill)
-                self._record(done + i, gflags[i], lc[i], ce[i], sel[i],
-                             self.meter.summary())
+                self._record(done + i, gflags[i], lc[i], ce[i], aux[i],
+                             sel[i], self.meter.summary())
             done += W
         return self.history
 

@@ -4,9 +4,11 @@ prefill (a cache-building forward) and single-token decode.  Port of
 
 Cache layout: ``{"client": [seg0_cache, ...], "server": [...]}``; each
 segment cache has leading ``n_rep`` leaves, keyed "0".."P-1" per body
-position, each entry ``{"mixer": {"k", "v"}}`` of shape
-``(n_rep, B, L, Hkv, hd)``.  Windowed attention caches are ring
-buffers.  Decode updates the cache in place.
+position, each entry ``{"mixer": ...}``: an attention layer's
+``{"k", "v"}`` of shape ``(n_rep, B, L, Hkv, hd)`` (windowed: ring
+buffers), a mamba layer's ``{"state": (n_rep, B, H, P, N) float32,
+"conv": (n_rep, B, K-1, conv_dim)}``.  Decode updates the cache in
+place.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_norm, embed, unembed, \
     vocab_pad_bias
 from repro_torch.models.transformer import (Segment, _client_inputs, _dtype,
@@ -27,11 +30,13 @@ from repro_torch.weights import tree_map
 def _seg_cache(cfg, seg: Segment, batch, cache_len, dtype, window, device):
     L = min(cache_len, window) if window else cache_len
 
-    def one():
-        kv = attn.init_kv_cache(cfg, batch, L, dtype, device)
+    def one(desc):
+        c = attn.init_kv_cache(cfg, batch, L, dtype, device) \
+            if desc.mixer == "attn" else \
+            ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
         return {n: t.expand((seg.n_rep,) + t.shape).contiguous()
-                for n, t in kv.items()}
-    return {str(j): {"mixer": one()} for j in range(len(seg.body))}
+                for n, t in c.items()}
+    return {str(j): {"mixer": one(d)} for j, d in enumerate(seg.body)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, dtype=None,
@@ -71,23 +76,29 @@ def _ring_arrange(k_full, window, cache_len):
 
 def run_segments_prefill(cfg, segments, seg_params, x, *, positions,
                          window=0, gates=None, cache_len=0, kv_len=None):
-    """Like ``run_segments`` but also emits per-layer caches.
+    """Like ``run_segments`` but also emits per-layer caches: an attention
+    layer's K/V arranged for decode, a mamba layer's final state and
+    conv tail.
 
     kv_len: optional (B,) int32 valid-key count per row for ragged
     right-padded prompts, applied to every self-attention (the
     reference's prefix ``kv_valid``).  Returns (x, caches)."""
     per_layer: Dict[Any, Any] = {}
 
-    def stash(si, j, kv):
-        per_layer.setdefault((si, j), []).append(
-            [_ring_arrange(t, window, cache_len) for t in kv])
+    def stash(si, j, cache):
+        if isinstance(cache, dict):                 # mamba: {state, conv}
+            per_layer.setdefault((si, j), []).append(cache)
+        else:                                       # attention: (k, v)
+            per_layer.setdefault((si, j), []).append(
+                {name: _ring_arrange(t, window, cache_len)
+                 for name, t in zip(("k", "v"), cache)})
 
-    x = run_segments(cfg, segments, seg_params, x, positions=positions,
-                     window=window, gates=gates, kv_len=kv_len,
-                     on_layer=stash)
+    x, _ = run_segments(cfg, segments, seg_params, x, positions=positions,
+                        window=window, gates=gates, kv_len=kv_len,
+                        on_layer=stash)
     caches = [{str(j): {"mixer": {
-        name: torch.stack([kv[i] for kv in per_layer[(si, j)]])
-        for i, name in enumerate(("k", "v"))}}
+        name: torch.stack([c[name] for c in per_layer[(si, j)]])
+        for name in per_layer[(si, j)][0]}}
         for j in range(len(seg.body))} for si, seg in enumerate(segments)]
     return x, caches
 
@@ -105,7 +116,8 @@ def prefill(cfg: ModelConfig, params, tokens, extras=None, *, gates=None,
     token for ragged right-padded prompts: the logits are taken there,
     and keys past it are masked out of every self-attention
     (``kv_len = last_index + 1``), so a ragged batch prefill equals
-    prefilling each prompt alone."""
+    prefilling each prompt alone.  A stack with mamba layers takes no
+    ``last_index`` (their state would fold the pad tokens in)."""
     dtype = _dtype(cfg, dtype)
     plan = model_plan(cfg)
     pc, ps = params["client"], params["server"]
@@ -114,6 +126,9 @@ def prefill(cfg: ModelConfig, params, tokens, extras=None, *, gates=None,
     cache_len = cache_len or tokens.shape[1] + 64
     kv_len = None
     if last_index is not None:
+        if not slot_serving_ok(cfg):
+            raise ValueError(f"{cfg.name}: an SSM stack cannot prefill a "
+                             "ragged right-padded batch")
         last_index = torch.as_tensor(last_index, device=tokens.device)
         kv_len = (last_index + 1).to(torch.int32)
     x, c_caches = run_segments_prefill(

@@ -1,16 +1,21 @@
-"""Decoder-only LM stack, dense and MoE (port of
-``repro.models.transformer``).
+"""Decoder-only LM stack: dense, MoE, SSM (mamba2) and hybrid (jamba)
+layers (port of ``repro.models.transformer``).
 
 The stack is organised into **segments**: maximal runs of layers whose
-(mixer, ffn) pattern repeats with period P.  Segment params are
-stacked with a leading ``n_rep`` axis as in the reference, and the
-reference's scan over ``n_rep`` is a Python loop here.  AdaSplit's
-client/server split slices the stack at ``cfg.split_layer`` and
+(mixer, ffn) pattern repeats with period P (the lcm of the attention
+and MoE interleave periods).  Segment params are stacked with a leading
+``n_rep`` axis as in the reference, and the reference's scan over
+``n_rep`` is a Python loop here.  AdaSplit's client/server split slices
+the stack at ``cfg.split_layer`` (block-aligned for hybrids) and
 re-segments each side.
 
-This slice carries the ``attn`` mixer and the ``dense`` and ``moe``
-ffns; the SSM, cross-attention and modality-frontend branches raise
-``NotImplementedError`` naming the slice that brings them.
+Mixers are ``attn`` (GQA, the flash kernel at prefill) and ``ssm``
+(``models.ssm``); ffns ``dense``, ``moe`` and ``none``.  The MoE
+router's aux loss is summed over every layer in order, as the
+reference's scan carries it, and the trainer adds ``router_aux_coef``
+times it to the server loss.  The cross-attention and
+modality-frontend branches raise ``NotImplementedError`` naming the
+slice that brings them.
 """
 from __future__ import annotations
 
@@ -25,29 +30,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_norm, embed, embedding_init,
                                        norm_init, unembed, vocab_pad_bias)
 from repro_torch.weights import tree_unstack
 
-_LATER = {"ssm": "the SSM/hybrid slice (models/ssm.py)",
-          "cross": "the encoder-decoder slice",
+_LATER = {"cross": "the encoder-decoder slice",
           "frontend": "the multimodal (audio / vision) slice"}
 
 
 def _later(what: str):
     raise NotImplementedError(f"{what} is not ported yet: it comes with "
                               f"{_LATER[what]}")
-
-
-def refuse_moe_training(cfg: ModelConfig):
-    """Training an MoE stack needs the router aux loss in the objective
-    (the reference adds ``router_aux_coef * aux``), which the port's
-    train step does not compute: refuse rather than train without it."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training is not ported yet (ROADMAP.md, "
-            "queue 1: \"MoE training (router aux loss)\"); the port "
-            "serves MoE configs only")
 
 
 # ---------------------------------------------------------------------------
@@ -112,8 +106,6 @@ def build_segments(cfg: ModelConfig, start: int, end: int) -> List[Segment]:
 
 
 def _check_layer(desc: LayerDesc):
-    if desc.mixer != "attn":
-        _later("ssm")
     if desc.cross:
         _later("cross")
 
@@ -124,9 +116,11 @@ def _layer_init(gen, cfg: ModelConfig, desc: LayerDesc, n_rep: int,
     given, applied to each weight as it is drawn."""
     _check_layer(desc)
     lead = (n_rep,)
+    mixer = attn.attention_init if desc.mixer == "attn" else \
+        ssm_mod.mamba_init
     p: Dict[str, Any] = {"norm1": norm_init(cfg.d_model, cfg.norm, lead,
                                             gen.device),
-                         "mixer": attn.attention_init(gen, cfg, lead, cast)}
+                         "mixer": mixer(gen, cfg, lead, cast)}
     if desc.ffn != "none":
         p["norm2"] = norm_init(cfg.d_model, cfg.norm, lead, gen.device)
         p["ffn"] = moe_mod.moe_init(gen, cfg, lead, cast) \
@@ -162,47 +156,66 @@ def _unit_gate(gate, dtype):
 def _ffn(cfg: ModelConfig, p, desc: LayerDesc, x, gates):
     """The ffn sublayer and its residual add: the dense SwiGLU, its
     hidden units gated, or the MoE block, its experts gated (an (E,) or
-    (B, E) gate as it comes)."""
+    (B, E) gate as it comes).  Returns (x, the router's aux loss, or
+    None where the layer has no router: the reference adds a zero
+    there, which changes no sum)."""
     if desc.ffn == "none":
-        return x
+        return x, None
     h = apply_norm(p["norm2"], x, cfg.norm)
     gate = _gate_or_none(gates, "ffn")
     if desc.ffn == "moe":
-        return x + moe_mod.moe_forward(p["ffn"], h, cfg, expert_gate=gate)[0]
+        y, aux = moe_mod.moe_forward(p["ffn"], h, cfg, expert_gate=gate)
+        return x + y, aux
     return x + mlp_mod.mlp_forward(p["ffn"], h,
-                                   unit_gate=_unit_gate(gate, x.dtype))
+                                   unit_gate=_unit_gate(gate, x.dtype)), None
 
 
 def apply_layer(cfg: ModelConfig, p, desc: LayerDesc, x, *, positions=None,
-                window=0, gates=None, kv_len=None, training=False):
-    """Full-sequence layer.  Returns (x, (k, v)): the layer's K/V, which
-    prefill stashes as its cache.  (The reference returns the MoE
-    router's aux loss in its place; ``moe_forward`` computes it, and no
-    serving path reads it.)  ``training`` takes the differentiable
-    training attention in place of the flash kernel
-    (``attn.attn_forward``)."""
+                window=0, gates=None, kv_len=None, training=False,
+                want_cache=False):
+    """Full-sequence layer.  Returns (x, cache, aux): the MoE router's
+    aux loss (float32; None without a router) and the layer's decode
+    cache as prefill stashes it: an attention layer's (k, v), a mamba
+    mixer's ``{"state", "conv"}`` where ``want_cache`` (else None).
+    ``training`` takes the differentiable training attention in
+    place of the flash kernel (``attn.attn_forward``); ``kv_len`` masks
+    the keys of ragged rows, and an SSM mixer takes no ragged rows (its
+    state would fold the pad tokens in: the engines never form one)."""
     _check_layer(desc)
     h = apply_norm(p["norm1"], x, cfg.norm)
-    out, kv = attn.attn_forward(p["mixer"], h, cfg, positions=positions,
-                                causal=desc.causal, window=window,
-                                head_gate=_gate_or_none(gates, "mixer"),
-                                kv_len=kv_len, training=training)
-    x = x + out
-    return _ffn(cfg, p, desc, x, gates), kv
+    gate = _gate_or_none(gates, "mixer")
+    if desc.mixer == "attn":
+        out, cache = attn.attn_forward(p["mixer"], h, cfg,
+                                       positions=positions,
+                                       causal=desc.causal, window=window,
+                                       head_gate=gate, kv_len=kv_len,
+                                       training=training)
+    else:
+        out = ssm_mod.mamba_forward(p["mixer"], h, cfg,
+                                    unit_gate=_unit_gate(gate, x.dtype),
+                                    return_state=want_cache)
+        out, cache = out if want_cache else (out, None)
+    x, aux = _ffn(cfg, p, desc, x + out, gates)
+    return x, cache, aux
 
 
 def apply_layer_decode(cfg: ModelConfig, p, desc: LayerDesc, x, cache, pos,
                        *, window=0, gates=None):
-    """One-token layer step.  Returns (x, new_cache)."""
+    """One-token layer step; the cache is updated in place.  Returns
+    (x, new_cache)."""
     _check_layer(desc)
     h = apply_norm(p["norm1"], x, cfg.norm)
     new_cache = dict(cache)
-    out, kv = attn.attn_decode(p["mixer"], h, cache["mixer"], pos, cfg,
-                               window=window,
-                               head_gate=_gate_or_none(gates, "mixer"))
-    new_cache["mixer"] = kv
-    x = x + out
-    return _ffn(cfg, p, desc, x, gates), new_cache
+    gate = _gate_or_none(gates, "mixer")
+    if desc.mixer == "attn":
+        out, new_cache["mixer"] = attn.attn_decode(
+            p["mixer"], h, cache["mixer"], pos, cfg, window=window,
+            head_gate=gate)
+    else:
+        out, new_cache["mixer"] = ssm_mod.mamba_decode(
+            p["mixer"], h, cache["mixer"], cfg,
+            unit_gate=_unit_gate(gate, x.dtype))
+    return _ffn(cfg, p, desc, x + out, gates)[0], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -232,16 +245,20 @@ def run_segments(cfg, segments, seg_params, x, *, positions=None, window=0,
                  remat=False):
     """gates: optional list aligned with segments; each entry a tree with
     leading n_rep dims matching the segment params (see core/masks.py).
-    on_layer(si, j, (k, v)): optional hook called with every layer's
-    K/V, in order (prefill stashes its cache through it).
+    on_layer(si, j, cache): optional hook called with every layer's
+    decode cache (``apply_layer``'s), in order (prefill stashes its
+    cache through it).
     training: every layer on the differentiable training attention.
     remat: each layer under ``torch.utils.checkpoint`` (its activations
     recomputed in the backward pass, the reference's ``jax.checkpoint``
-    of each scan step); no ``on_layer`` hook with it.  Returns x."""
+    of each scan step; the checkpointed function returns the layer's
+    aux too, so the router's aux gradient survives it); no ``on_layer``
+    hook with it.  Returns (x, aux): the router aux losses summed over
+    the layers in order, as the reference's scan carries them (a
+    float32 zero for a stack without a router)."""
     if remat and on_layer is not None:
-        raise ValueError("remat keeps no layer's K/V for on_layer")
-    if training or remat:
-        refuse_moe_training(cfg)
+        raise ValueError("remat keeps no layer's cache for on_layer")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (seg, sp) in enumerate(zip(segments, seg_params)):
         g_seg = gates[si] if gates is not None else None
         g_reps = [None] * seg.n_rep if g_seg is None else \
@@ -255,23 +272,30 @@ def run_segments(cfg, segments, seg_params, x, *, positions=None, window=0,
                           training=training)
                 lp = p_reps[j][r]
                 if remat:
-                    x = checkpoint(_layer_out, cfg, lp, desc, x, kw,
-                                   use_reentrant=False)
-                    continue
-                x, kv = apply_layer(cfg, lp, desc, x, **kw)
-                if on_layer is not None:
-                    on_layer(si, j, kv)
-    return x
+                    x, a = checkpoint(_layer_out, cfg, lp, desc, x, kw,
+                                      use_reentrant=False)
+                else:
+                    x, cache, a = apply_layer(cfg, lp, desc, x,
+                                              want_cache=on_layer is not None,
+                                              **kw)
+                    if on_layer is not None:
+                        on_layer(si, j, cache)
+                if a is not None:
+                    aux = aux + a
+    return x, aux
 
 
 def _layer_out(cfg, p, desc, x, kw):
-    return apply_layer(cfg, p, desc, x, **kw)[0]
+    x, _, aux = apply_layer(cfg, p, desc, x, **kw)
+    return x, aux
 
 
 def run_segments_decode(cfg, segments, seg_params, x, caches, pos, *,
                         window=0, gates=None):
-    """caches: per segment, {str(j): {"mixer": {"k", "v"}}} with leaves
-    (n_rep, B, L, Hkv, hd), updated in place.  Returns (x, caches)."""
+    """caches: per segment, {str(j): {"mixer": ...}}: an attention
+    layer's {"k", "v"} with leaves (n_rep, B, L, Hkv, hd), a mamba
+    layer's {"state": (n_rep, B, H, P, N), "conv": (n_rep, B, K-1, C)},
+    updated in place.  Returns (x, caches)."""
     for si, (seg, sp, cache) in enumerate(zip(segments, seg_params, caches)):
         g_seg = gates[si] if gates is not None else None
         for r in range(seg.n_rep):
@@ -349,33 +373,35 @@ def client_forward(cfg: ModelConfig, p, tokens, extras=None, *, dtype=None,
     remat: as in :func:`run_segments` (the LM trainer sets both)."""
     dtype = _dtype(cfg, dtype)
     x = _client_inputs(cfg, p, tokens, extras, dtype)
+    # the client's router aux stays out of its loss, as in the reference
     return run_segments(cfg, model_plan(cfg)["client_segments"],
                         p["segments"], x,
                         positions=_positions_for(cfg, tokens, extras),
-                        window=window, training=training, remat=remat)
+                        window=window, training=training, remat=remat)[0]
 
 
 def server_forward(cfg: ModelConfig, p, acts, tokens=None, extras=None, *,
                    gates=None, window=0, training=False, remat=False,
                    return_hidden=False):
     """Server stack: split activations -> float32 logits (the reference
-    also returns the MoE aux loss, which a dense stack does not have).
+    also returns the MoE aux loss; ``return_hidden`` returns it here).
 
     gates: AdaSplit per-client structured masks (see core/masks.py), a
     list aligned with the server segments.  training / remat: as in
     :func:`run_segments`.  return_hidden: skip the unembed and return
     (final-norm hidden states, router aux loss), as the reference does
-    for its chunked-CE path; the aux loss of a dense stack is a float32
-    zero."""
+    for its chunked-CE path: the aux summed over the server's layers (a
+    float32 zero for a stack without a router)."""
     positions = None
     if tokens is not None:
         positions = _positions_for(cfg, tokens, extras)
-    x = run_segments(cfg, model_plan(cfg)["server_segments"], p["segments"],
-                     acts, positions=positions, window=window, gates=gates,
-                     training=training, remat=remat)
+    x, aux = run_segments(cfg, model_plan(cfg)["server_segments"],
+                          p["segments"], acts, positions=positions,
+                          window=window, gates=gates, training=training,
+                          remat=remat)
     x = apply_norm(p["final_norm"], x, cfg.norm)
     if return_hidden:
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
     logits = unembed(p["lm_head"], x)
     return logits + vocab_pad_bias(cfg.vocab_size, cfg.padded_vocab(),
                                    x.device)

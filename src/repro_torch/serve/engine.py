@@ -12,9 +12,13 @@ binarized gate tree, LRU-cached, stacked per example).  Ragged prompts
 are RIGHT-padded, and each example's last-token logits and decode
 positions are its own (``last_index`` + per-slot ``pos`` through
 ``models.decode``), so a ragged batch decodes the same tokens as
-serving each request alone.  A finished request's row keeps computing
-until the batch's largest budget, but each request is billed at its own
-budget and its latency is admission -> completion of ITS last token.
+serving each request alone.  A stack that cannot mask pad state (an
+SSM or hybrid one: its mixers fold every token into their state) runs
+a ragged batch as equal-length sub-batches instead, in the order of
+their first request, as the reference's ``_ragged_ok`` fallback does.
+A finished request's row keeps computing until the batch's largest
+budget, but each request is billed at its own budget and its latency
+is admission -> completion of ITS last token.
 
 Accounting (``EngineStats``): ``tokens`` counts tokens decoded for live
 requests (the over-decode past a request's own budget included),
@@ -191,6 +195,14 @@ class ServeEngine:
     def _run_batch(self, batch: List[Request]):
         cfg = self.cfg
         lens = np.array([len(r.prompt) for r in batch], np.int32)
+        if len(set(lens.tolist())) > 1 and not dec.slot_serving_ok(cfg):
+            # an SSM stack cannot mask pad state: exact equal-length
+            # sub-batches (correctness over batching)
+            by_len: Dict[int, List[Request]] = {}
+            for r in batch:
+                by_len.setdefault(len(r.prompt), []).append(r)
+            return [r for sub in by_len.values()
+                    for r in self._run_batch(sub)]
         t0 = time.time()
         for r in batch:
             r.t_admit = t0

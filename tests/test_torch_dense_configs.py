@@ -151,10 +151,11 @@ def test_config_matches_reference(arch, narrow):
 
 
 # the registered LM archs beyond this file's dense three
-OTHER_ARCHS = ("qwen2-0.5b", "deepseek-moe-16b", "qwen3-moe-30b-a3b")
+OTHER_ARCHS = ("qwen2-0.5b", "deepseek-moe-16b", "qwen3-moe-30b-a3b",
+               "mamba2-370m", "jamba-v0.1-52b")
 
 
-def test_list_archs_is_the_registered_set_of_seven():
+def test_list_archs_is_the_registered_set_of_nine():
     assert list_archs() == sorted(ARCHS + OTHER_ARCHS)
     assert list_archs(include_paper=True) == sorted(
         ARCHS + OTHER_ARCHS + ("lenet-cifar",))
@@ -169,7 +170,7 @@ def test_serve_cli_takes_the_registered_archs():
                        "--fold-mask"])
     assert out.shape == (2, 2)
     with pytest.raises(SystemExit):
-        tserve.main(["--arch", "mamba2-370m", "--device", "cpu"])
+        tserve.main(["--arch", "qwen2-vl-72b", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["equal", "ragged"])

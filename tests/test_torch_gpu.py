@@ -1064,3 +1064,109 @@ def test_conv_reference_on_card_makes_no_panel_gemm_launch(cuda):
     torch.cuda.synchronize()
     assert tcc.LAUNCHES == {"panel_gemm": 0, "panel_gemm_bias_relu": 0}
     assert tnt.LAUNCHES["ntxent_stats"] > 0
+
+
+@pytest.mark.parametrize("dtype,B,Hq,Hkv,hd", [
+    (torch.bfloat16, 8, 32, 8, 128), (torch.float32, 3, 4, 4, 64)],
+    ids=["jamba-bf16", "jamba-reduced-f32"])
+def test_flash_attention_jamba_shapes_match_plain(cuda, dtype, B, Hq, Hkv,
+                                                  hd):
+    """jamba-v0.1-52b's attention layers at prefill: GQA 32/8, hd 128,
+    bf16, B=8 S=512 (the session's shape), and its reduced config's 4/4
+    at hd 64 in float32 (the card-vs-CPU check's)."""
+    S = 512 if dtype == torch.bfloat16 else 12
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((B, S, h, hd), device=cuda, generator=gen)
+               .to(dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+    before = tfa.LAUNCHES["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=True)
+    want = tfa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("arch,dtype", [("mamba2-370m", "bfloat16"),
+                                        ("jamba-v0.1-52b", "float32")])
+def test_ssm_prefill_and_decode_on_card_match_cpu(cuda, arch, dtype):
+    """The reduced config (mamba2: a mamba layer a side; jamba: ``m a m
+    a``) from the same params on the card and on the CPU: a prefill
+    (jamba's attention layers one flash launch each) and two decode
+    steps, the SSM state carried in place.  float32 logits within 1e-4
+    of their largest magnitude, bf16 within 2e-2 (each bf16 product
+    rounded on both devices, in other accumulation orders)."""
+    from repro_torch.launch.steps import init_serve_params
+    from repro_torch.models import decode as dec
+    from repro_torch.weights import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    gpu = init_serve_params(cfg, 0, dtype, device="cuda")
+    cpu = tree_map(lambda t: t.cpu(), gpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+
+    def close(a, b):
+        b = b.float()
+        assert float((a.float().cpu() - b).abs().max()) <= \
+            tol * float(b.abs().max())
+    tfa.reset_launches()
+    lg, cg = dec.prefill(cfg, gpu, toks.cuda(), cache_len=44)
+    n_attn = sum(cfg.is_attn_layer(i) and cfg.n_heads > 0
+                 for i in range(cfg.n_layers))
+    assert tfa.LAUNCHES["flash_attention"] == n_attn
+    lc, cc = dec.prefill(cfg, cpu, toks, cache_len=44)
+    close(lg, lc)
+    tok = lc.argmax(-1).to(torch.int32)
+    for t in range(2):
+        lg, cg = dec.decode_step(cfg, gpu, tok.cuda(), cg, 40 + t)
+        lc, cc = dec.decode_step(cfg, cpu, tok, cc, 40 + t)
+        close(lg, lc)
+        tok = lc.argmax(-1).to(torch.int32)
+    state = cg["server"][0]["0"]["mixer"]["state"]
+    close(state, cc["server"][0]["0"]["mixer"]["state"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-370m"])
+def test_moe_and_ssm_train_step_on_card_matches_cpu(cuda, arch):
+    """One global train step of the reduced config (float32, C=2 cohorts
+    of 4 rows) on the card and on the CPU from the same state: the
+    losses and the router aux within 1e-4, the new moments within 1e-4
+    of each leaf's largest magnitude; one NT-Xent forward and backward
+    launch, the client Adam launches ``plan_launches`` predicts, no
+    flash launch."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.weights import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    C, b, S = 2, 4, 16
+    pol = tsteps.LaunchPolicy(param_dtype="float32")
+    fn = tsteps.build_train_step(cfg, InputShape("t", S, C * b, "train"),
+                                 pol, n_cohorts=C)
+    state = tsteps.init_train_state(cfg, C, pol, 0, device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, 512, (C * b, S)),
+             "labels": rng.integers(0, 512, (C * b, S)),
+             "seq_class": np.repeat(np.arange(C), b),
+             "select": np.array([1.0, 1.0], np.float32)}
+    batch = {k: torch.from_numpy(np.asarray(v).astype(
+        np.float32 if k == "select" else np.int32)) for k, v in batch.items()}
+    cpu_state = tree_map(lambda t: t.cpu(), state)
+    for m in (tma, tnt, tfa):
+        m.reset_launches()
+    new, mg = fn(state, {k: v.to(cuda) for k, v in batch.items()})
+    want = {"ntxent_stats": 1, "ntxent_backward": 1, "flash_attention": 0,
+            "client_adam": len(tma.plan_launches(
+                [t.numel() for t in tree_leaves(state["trainables"])])),
+            "masked_adam": 0}
+    got = dict(tnt.LAUNCHES, **tma.LAUNCHES, **tfa.LAUNCHES)
+    assert {k: got[k] for k in want} == want
+    new_c, mc = fn(cpu_state, batch)
+    for k in ("l_client", "ce", "aux"):
+        assert float(mg[k]) == pytest.approx(float(mc[k]), rel=1e-4)
+    assert (float(mc["aux"]) > 0) == bool(cfg.n_experts)
+    for key in ("mu", "nu"):
+        for a, c in zip(tree_leaves(new["opt"][key]),
+                        tree_leaves(new_c["opt"][key])):
+            scale = float(c.abs().max()) or 1.0
+            assert float((a.cpu() - c).abs().max()) <= 1e-4 * scale

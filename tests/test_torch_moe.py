@@ -42,8 +42,7 @@ from repro.models import transformer as jtfm
 from repro_torch.configs.base import get_config
 from repro_torch.core import accounting as tacc
 from repro_torch.core import masks as tmasks
-from repro_torch.launch.steps import LaunchPolicy, init_serve_params, \
-    init_train_state
+from repro_torch.launch.steps import init_serve_params
 from repro_torch.models import decode as tdec
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttfm
@@ -449,7 +448,7 @@ def test_fold_equals_gated_forward(model):
 
 
 # ---------------------------------------------------------------------------
-# init and training
+# init
 # ---------------------------------------------------------------------------
 
 
@@ -465,23 +464,3 @@ def test_serve_init_draws_expert_rows_as_the_whole_tree(arch):
     w_gate = got["server"]["segments"][-1][0]["ffn"]["w_gate"]
     assert w_gate.dtype == torch.bfloat16 and w_gate.shape[0] == 2
     assert not torch.equal(w_gate[0], w_gate[1])
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_moe_train_state_refused(arch):
-    """Training an MoE config needs the router aux loss, which the port's
-    train step does not compute: building its state raises, naming the
-    ROADMAP item, and so does a training forward."""
-    cfg = _small(get_config, arch)
-    with pytest.raises(NotImplementedError,
-                       match=r"MoE training \(router aux loss\)"):
-        init_train_state(cfg, 2, LaunchPolicy(), device="cpu")
-    from repro_torch.configs.base import InputShape
-    from repro_torch.launch.train import LMAdaSplitTrainer
-    with pytest.raises(NotImplementedError, match="router aux loss"):
-        LMAdaSplitTrainer(cfg, InputShape("t", 16, 4, "train"),
-                          LaunchPolicy(), n_cohorts=2, device="cpu")
-    p = init_serve_params(cfg, 0, "float32", device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="router aux loss"):
-        ttfm.client_forward(cfg, p["client"], toks, training=True)
