@@ -79,7 +79,10 @@ time:
    512, with its totals on a line of their own), at every prefill shape
    of phase 7b's and 7c's runs (``arch_runs()``: hd 128 and 96, GQA
    32/8, MHA 16/16 and 32/32 and qwen3's group of 8, 32/4; totals per
-   head dim), at phase 7d's jamba session shape (32/8, hd 128) and at
+   head dim), at phase 7d's jamba session shape (32/8, hd 128), at
+   phase 7e's (qwen2-vl's 64/8 at hd 128, S = 1,280, and its B=1
+   admissions; seamless's non-causal encoder, 16/16 at hd 64, S =
+   1,024, and its decoder's S = 1 BOS prefill) and at
    phase 6's f32 shapes (the reduced jamba's 4/4 at hd 64 among them),
    against its plain version, with
    device times,
@@ -92,7 +95,10 @@ time:
    and by less on average;
 6. qwen2-0.5b, granite-3-8b, phi3-mini-3.8b, deepseek-moe-16b (its
    dense layer 0 on the client, an MoE layer on the server) and
-   qwen3-moe-30b-a3b and mamba2-370m at full width cut to 2 layers, and
+   qwen3-moe-30b-a3b and mamba2-370m at full width cut to 2 layers,
+   qwen2-vl-72b at 2 layers (16 patches at distinct M-RoPE streams) and
+   seamless-m4t-large-v2 at 2 + 2 (64 source frames; cross-attention in
+   the prefill and every decode step), and
    jamba-v0.1-52b's reduced config (``m a m a``), strict fp32: a
    prefill and teacher-forced decode steps on the card and on the CPU,
    compared (MoE: the smallest top-K router margin, and the margin of
@@ -146,6 +152,23 @@ time:
    8-layer periods, 52.0 GB; a prefill and a decode step profiled from
    params freed before the session) through the session CLI; flash
    launches one an attention layer per prefill (jamba 2, mamba2 0);
+7e. vision-text and encoder-decoder serving, bf16, reckoned bytes
+   before and peaks after: qwen2-vl-72b at published widths cut to 24
+   of its 80 layers (~47 GB; 80 do not fit) through the session CLI
+   alone (B=8, 1,280-token prompts, 32 new, client 0 folded; its params
+   freed), then one init for a prefill of the same shape with 1,024
+   patch embeddings spliced over the prefix at distinct (t, h, w)
+   M-RoPE streams and 31 decode steps (logits finite and moved by the
+   patches; prefill and decode profiled) and ``ContinuousEngine`` on 8
+   requests arriving between steps (``EngineStats`` equal to the dry
+   run, steady steps under ``sync_debug_mode("error")``);
+   seamless-m4t-large-v2 at full width and depth (24 + 24 layers)
+   through the session CLI (1,024 source frames a row) and the mixed
+   FIFO engine on phase 7's 16 requests (equal-length sub-batches, zero
+   source frames), prefill and decode profiled, and
+   ``ContinuousEngine``'s refusal; flash launches one a self-attention
+   layer per prefill (24; seamless 24 + 24: cross-attention never takes
+   the kernel);
 8. Table 1 through ``launch/compare.py`` and the baselines card vs CPU
    (phase 8);
 8b. the AdaSplit LM trainer (``repro_torch.launch.train``) on
@@ -169,10 +192,14 @@ time:
    (its dense layer 0 on the client, one MoE layer on the server), each
    state's reckoned size printed before it allocates, the router aux
    loss beside the CE;
+8d. encoder-decoder training as 8b: seamless-m4t-large-v2 at published
+   widths cut to 12 + 12 layers (~1.46 B elements, reckoned ~43.5 GiB;
+   24 + 24 do not fit at C=4), source frames drawn as the reference's
+   trainer draws them;
 9. a ``kernels`` JSON line (all eight kernels; flash's launches those of
-   every phase 7, 7b, 7c and 7d run, its times the hd-64 session and FIFO
-   totals; NT-Xent's and client Adam's launches include phases 8b's and
-   8c's),
+   every phase 7, 7b, 7c, 7d and 7e run, its times the hd-64 session and
+   FIFO totals; NT-Xent's and client Adam's launches include phases
+   8b's, 8c's and 8d's),
    then the final ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the repository around it, and imports nothing
@@ -2211,6 +2238,16 @@ def train_elements(cfg, C):
     C clients' embeddings and layers, the server's layers and LM head."""
     import dataclasses
     emb = cfg.padded_vocab() * cfg.d_model
+    if cfg.is_encoder_decoder:
+        # the client: the frontend projector and its encoder layers; the
+        # server: the rest of the encoder, the decoder (each layer with
+        # its cross-attention), its token embedding and the LM head
+        d = cfg.d_model
+        attn = 2 * (cfg.n_heads + cfg.n_kv_heads) * cfg.head_dim * d
+        enc = attn + 3 * d * cfg.d_ff
+        s = cfg.split_layer
+        return C * (d * d + s * enc) + (cfg.n_encoder_layers - s) * enc \
+            + cfg.n_layers * (enc + attn) + 2 * emb
 
     def layers(n):      # the first n layers
         return dataclasses.replace(cfg, n_layers=n, tie_embeddings=True) \
@@ -2273,8 +2310,28 @@ JAMBA_LAYERS = 16
 # (the reduced jamba, ``m a m a``, is checked beside them)
 TWO_DEVICE_ARCHS = (SERVE_ARCH, "granite-3-8b", "phi3-mini-3.8b") \
     + MOE_ARCHS + ("mamba2-370m",)
+# phase 7e: the vision-text and encoder-decoder families, bf16:
+# qwen2-vl-72b at published widths cut to VLM_LAYERS (its 80 layers,
+# ~144 GB of bf16 weights, do not fit one card; 24 are ~47 GB) through
+# the session CLI (B=8, 1,280-token prompts, 32 new), one direct prefill
+# of the same shape with VLM_GRID**2 = 1,024 patch embeddings spliced
+# over the prefix at distinct (t, h, w) streams and 31 decode steps, and
+# the continuous engine on VLM_TRACE; seamless-m4t-large-v2 at full
+# width and depth (24 + 24 layers, ~4.1 GB) through the session (1,024
+# source frames a row) and the mixed FIFO engine on phase 7's 16
+# requests (equal-length sub-batches), its continuous refusal asserted
+VLM_ARCH, VLM_LAYERS, VLM_GRID = "qwen2-vl-72b", 24, 32
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+MM_ARCHS = (VLM_ARCH, ENCDEC_ARCH)
+# the continuous engine's trace: 8 requests from 4 clients, arriving in
+# chunks of 3, 1, 2 between steps (client, prompt length, budget)
+VLM_TRACE = [(0, 211, 12), (1, 64, 9), (2, 390, 16), (3, 120, 8),
+             (0, 33, 14), (1, 301, 10), (2, 75, 11), (3, 160, 13)]
+# phase 6's multimodal inputs at 2 layers: 16 patches (a 4 x 4 grid) at
+# distinct streams, and 64 source frames a row
+MM_TWO_GRID = 4
 # flash totals on lines of their own (the `kernels` line keeps qwen2's)
-OWN_TOTALS = MOE_ARCHS + ("jamba-v0.1-52b",)
+OWN_TOTALS = MOE_ARCHS + ("jamba-v0.1-52b",) + MM_ARCHS
 
 
 def serving_runs():
@@ -2311,10 +2368,13 @@ def serving_runs():
 
 
 def attn_layers(cfg) -> int:
-    """The attention layers of ``cfg``'s stack: the flash launches of one
-    prefill (a pure SSM stack has none; jamba one of each 8)."""
-    return sum(bool(cfg.n_heads) and cfg.is_attn_layer(i)
-               for i in range(cfg.n_layers))
+    """The self-attention layers of ``cfg``'s stack: the flash launches of
+    one prefill (a pure SSM stack has none; jamba one of each 8; an
+    encoder-decoder its encoder's at the source length and its decoder's
+    at the BOS token; cross-attention never takes the kernel)."""
+    n = sum(bool(cfg.n_heads) and cfg.is_attn_layer(i)
+            for i in range(cfg.n_layers))
+    return n + cfg.n_encoder_layers if cfg.is_encoder_decoder else n
 
 
 def ssm_cfg(arch):
@@ -2430,11 +2490,11 @@ def fp32_prefill_shapes():
         for sh in fifo_shapes(e["spec"], f"fp32 {name}", **kw)]
 
 
-def flash_rounded_p(q, k, v, kv_len):
-    """Causal GQA attention as the bf16 kernel would compute it if it
-    rounded P once to bf16 before P V (the TPU kernel's and SDPA's
-    choice) and kept everything else in f32: the control that its
-    P = P_hi + P_lo split must beat."""
+def flash_rounded_p(q, k, v, kv_len, causal=True):
+    """GQA attention (causal unless asked otherwise) as the bf16 kernel
+    would compute it if it rounded P once to bf16 before P V (the TPU
+    kernel's and SDPA's choice) and kept everything else in f32: the
+    control that its P = P_hi + P_lo split must beat."""
     import torch
     B, Hq, S, hd = q.shape
     G = Hq // k.shape[1]
@@ -2442,7 +2502,8 @@ def flash_rounded_p(q, k, v, kv_len):
     vf = v.float().repeat_interleave(G, dim=1)
     s = q.float() @ kf.transpose(-1, -2) / math.sqrt(hd)
     pos = torch.arange(S, device=q.device)
-    seen = (pos[None, :] <= pos[:, None])[None, None]
+    seen = (pos[None, :] <= pos[:, None] if causal else
+            torch.ones((S, S), dtype=torch.bool, device=q.device))[None, None]
     if kv_len is not None:
         seen = seen & (pos[None, None, None, :] < kv_len[:, None, None, None])
     s = s.masked_fill(~seen, -math.inf)
@@ -2486,7 +2547,8 @@ def two_device_shape():
 
 def check_flash(cases, gen):
     """The kernel at every case of ``flash_cases`` (causal, kv_len where
-    ragged): phase 7's and 7b's serving prefill shapes in bf16 and
+    ragged; a case may add ``causal=False`` as a seventh element: an
+    encoder's attention): phase 7's and 7b's serving prefill shapes in bf16 and
     phase 6's f32 ones (its engines' and the card-vs-CPU prefills),
     against its plain version; device times of the kernel, the plain
     version and one SDPA call (library yardstick only: the port never
@@ -2503,14 +2565,16 @@ def check_flash(cases, gen):
     from repro_torch.kernels import flash_attention as fa
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")
     totals, worst = {}, 0.0
-    for cfg, label, B, S, lens, dtype in cases:
+    for cfg, label, B, S, lens, dtype, *rest in cases:
+        causal = rest[0] if rest else True
         Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         q, k, v = (torch.randn((B, S, h, hd), device="cuda", generator=gen)
                    .to(dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv))
         kv_len = None if lens is None else torch.tensor(
             lens, dtype=torch.int32, device="cuda")
-        got = fa.flash_attention_cuda(q, k, v, causal=True, kv_len=kv_len)
-        want = fa.flash_attention_plain(q, k, v, causal=True, kv_len=kv_len)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len)
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        kv_len=kv_len)
         torch.cuda.synchronize()
         name = str(dtype).replace("torch.", "")
         err = float((got.float() - want.float()).abs().max())
@@ -2518,26 +2582,27 @@ def check_flash(cases, gen):
             raise AssertionError(f"flash_attention {label}: max abs err {err}")
         pos = torch.arange(S, device="cuda")
         mask = None if lens is None else (
-            (pos[None, :] <= pos[:, None])[None, None]
+            (pos[None, :] <= pos[:, None] if causal else True)
             & (pos[None, None, None, :] < kv_len[:, None, None, None]))
 
         def sdpa():
             return F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=mask is None,
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=True)
         lib_err = float((sdpa().float() - want.float()).abs().max())
         ms = device_ms(lambda: fa.flash_attention_cuda(
-            q, k, v, causal=True, kv_len=kv_len), 10)
+            q, k, v, causal=causal, kv_len=kv_len), 10)
         plain_ms = device_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=True, kv_len=kv_len), 3)
+            q, k, v, causal=causal, kv_len=kv_len), 3)
         lib_ms = device_ms(sdpa, 10)
         host = host_us(lambda: fa.flash_attention_cuda(
-            q, k, v, causal=True, kv_len=kv_len))
+            q, k, v, causal=causal, kv_len=kv_len))
         lib_host = host_us(sdpa)
         # each input read once, the output written once; QK^T and PV over
         # the (query, key) pairs causality and kv_len leave
         L = lens or [S] * B
-        pairs = sum(n * (n + 1) // 2 + (S - n) * n for n in L)
+        pairs = sum(n * (n + 1) // 2 + (S - n) * n if causal else S * n
+                    for n in L)
         flops = 4.0 * hd * Hq * pairs
         nbytes = q.element_size() * B * S * hd * (2 * Hq + 2 * Hkv) \
             + (4 * B if lens else 0)
@@ -2545,7 +2610,8 @@ def check_flash(cases, gen):
         bms, by = bound(nbytes, flops, rate)
         kv = "full" if lens is None else (lens if B == 1 else "ragged")
         print(f"  flash_attention {label} {name} B={B} Hq={Hq} Hkv={Hkv} "
-              f"S={S} hd={hd} kv_len={kv}: "
+              f"S={S} hd={hd} kv_len={kv}"
+              f"{'' if causal else ' non-causal'}: "
               f"max_abs_err={err:.3e} (tol {FLASH_TOL[name]}) ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} "
               f"sdpa_ms={lib_ms:.4f} (max_abs_err vs plain {lib_err:.3e}) "
@@ -2553,7 +2619,8 @@ def check_flash(cases, gen):
               f"ms/sdpa={ms / lib_ms:.3f} host_us={host:.1f} "
               f"sdpa_host_us={lib_host:.1f}")
         if dtype == torch.bfloat16:
-            split_p_check(label, got, want, flash_rounded_p(q, k, v, kv_len))
+            split_p_check(label, got, want,
+                          flash_rounded_p(q, k, v, kv_len, causal))
             kind = "B=1 admission" if ADMISSION in label else \
                 "session and FIFO prefill"
             # an MoE config's shapes total on lines of their own
@@ -2576,11 +2643,45 @@ def check_flash(cases, gen):
                 max_abs_err=worst)
 
 
+def vision_positions(B, S, grid):
+    """(B, S, 3) int32 (t, h, w) position streams of a prompt whose first
+    grid x grid tokens are patches: (0, row, col) there, then grid + i
+    on all three streams for the text."""
+    import torch
+    f = grid * grid
+    i = torch.arange(min(f, S), dtype=torch.int32)
+    pos = torch.empty((S, 3), dtype=torch.int32)
+    pos[:len(i)] = torch.stack([0 * i, i // grid, i % grid], dim=-1)
+    pos[f:] = (grid + torch.arange(max(S - f, 0), dtype=torch.int32))[:, None]
+    return pos.expand(B, S, 3).contiguous()
+
+
+def mm_extras(cfg, B, S, grid, dtype, device, seed):
+    """The modality inputs of a multimodal config, N(0, 1) from ``seed``
+    on ``device``: an encoder-decoder's S source frames a row, a
+    vision-text config's grid x grid patches and their distinct
+    streams (``vision_positions``); None for a text config."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    if cfg.is_encoder_decoder:
+        return {"src_embeds": draw((B, S, cfg.d_model))}
+    if cfg.modality == "vision_text":
+        return {"vision_embeds": draw((B, grid * grid, cfg.d_model)),
+                "positions": vision_positions(B, S, grid).to(device)}
+    return None
+
+
 def lm_on_two_devices(arch, cfg=None):
     """``arch`` at full width cut to 2 layers (or ``cfg``), strict fp32:
     one prefill and teacher-forced decode steps on the card and on the
-    CPU, from the same params (the port's own init, on the card); an SSM
-    stack's final mamba states compared too."""
+    CPU, from the same params (the port's own init, on the card) and
+    the same modality inputs (``mm_extras``: a vision-text config's 16
+    patches at distinct M-RoPE streams, an encoder-decoder's source
+    frames, whose cross-attention runs in the prefill and every decode
+    step); an SSM stack's final mamba states compared too."""
     import dataclasses
     import numpy as np
     import torch
@@ -2598,12 +2699,15 @@ def lm_on_two_devices(arch, cfg=None):
     cpu = tree_map(lambda t: t.cpu(), gpu)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32))
+    ex = mm_extras(cfg, B, S, MM_TWO_GRID, torch.float32, "cpu", 3)
+    ex_gpu = None if ex is None else {k: v.cuda() for k, v in ex.items()}
     fa.reset_launches()
     with routes_on_two_devices() as routes:
-        lg, cg = dec.prefill(cfg, gpu, toks.cuda(),
+        lg, cg = dec.prefill(cfg, gpu, toks.cuda(), ex_gpu,
                              cache_len=S + two["decode"])
         launches = fa.LAUNCHES["flash_attention"]
-        lc, cc = dec.prefill(cfg, cpu, toks, cache_len=S + two["decode"])
+        lc, cc = dec.prefill(cfg, cpu, toks, ex,
+                             cache_len=S + two["decode"])
         worst, same, steps = 0.0, True, []
         for t in range(two["decode"] + 1):
             if t:
@@ -2622,9 +2726,13 @@ def lm_on_two_devices(arch, cfg=None):
         state = (f"; final SSM states of {len(st)} segment positions max "
                  f"rel err {err:.3e}")
         worst = max(worst, err)
+    inputs = ""
+    if ex is not None:
+        inputs = ", " + ", ".join(f"{k} {tuple(v.shape)}"
+                                  for k, v in ex.items())
     print(f"  [{cfg.name}] prefill B={B} S={S} + {two['decode']} decode "
           f"steps, {cfg.n_layers} layers of width {cfg.d_model} (hd "
-          f"{cfg.head_dim}): flash launches "
+          f"{cfg.head_dim}{inputs}): flash launches "
           f"on the card {launches}; logits max rel err {worst:.3e}; greedy "
           f"tokens equal on both devices: {same} (card's: {steps})"
           + state + route_margins(cfg, routes))
@@ -3139,7 +3247,9 @@ def run_serving(cfg, runs, device="cuda"):
                     " params:")
         masks = tserve.random_masks(cfg, runs["n_clients"], device=device)
         warm = torch.ones((2, 64), dtype=torch.int32, device=device)
-        tserve.serve_session(cfg, params, warm, 2, device=device)  # warm-up
+        tserve.serve_session(cfg, params, warm, 2, device=device,
+                             extras=mm_extras(cfg, 2, 64, 1, torch.bfloat16,
+                                              device, 0))  # warm-up
     out = {}
     s = runs["session"]
     if runs["profile"] and not (runs["engines"] or runs["continuous"]):
@@ -3218,8 +3328,9 @@ def run_serving(cfg, runs, device="cuda"):
     return out
 
 
-def profile_session(cfg, params, s, device):
-    """Where the time goes: the session's prefill and its decode steps,
+def profile_session(cfg, params, s, device, extras=None):
+    """Where the time goes: the session's prefill (with ``extras``, and an
+    encoder-decoder's bf16 source frames) and its decode steps,
     profiled."""
     import numpy as np
     import torch
@@ -3227,10 +3338,12 @@ def profile_session(cfg, params, s, device):
     S = s["prompt_len"]
     prompts = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (s["batch"], S)).astype(np.int32)).to(device)
+    if cfg.is_encoder_decoder:
+        extras = mm_extras(cfg, s["batch"], S, 1, torch.bfloat16, device, 3)
     held = {}
 
     def prefill():
-        held["out"] = dec.prefill(cfg, params, prompts,
+        held["out"] = dec.prefill(cfg, params, prompts, extras,
                                   cache_len=S + s["gen"] + 1)
     profile_calls(prefill, 2, f"{cfg.name} session prefill", "prefills",
                   "prefill")
@@ -3269,12 +3382,12 @@ def serving_bytes(cfg):
     (the LM head apart from the embedding, padded vocab) and the copies
     ``fold_unit_masks`` makes of the server's gated projections (``wo``,
     ``out_proj``, ``w_down``; an MoE layer's every expert's)."""
-    from repro_torch.models.transformer import model_plan
+    from repro_torch.models.transformer import server_plan
     d = cfg.d_model
     weights = cfg.param_count() + 2 * cfg.padded_vocab() * d \
         - cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     fold = 0
-    for seg in model_plan(cfg)["server_segments"]:
+    for seg in server_plan(cfg):
         for desc in seg.body:
             fold += seg.n_rep * d * (
                 cfg.n_heads * cfg.head_dim if desc.mixer == "attn"
@@ -3331,6 +3444,197 @@ def ssm_serving_phase():
                 raise AssertionError(f"ContinuousEngine took {arch}")
         total += serve_archs({arch: (cfg, runs)})
     return total
+
+
+def vlm_cfg():
+    """Phase 7e's qwen2-vl-72b: published widths, ``VLM_LAYERS`` layers."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+
+
+def vlm_runs():
+    """Phase 7e's qwen2-vl runs: the session (B=8, 1,280-token prompts, 32
+    new tokens, client 0's mask folded) and the continuous engine on
+    ``VLM_TRACE`` (8 slots, cache 576)."""
+    runs = serving_runs()
+    runs.update(session=dict(runs["session"], prompt_len=1280), engines={},
+                profile=False, continuous={"short": {
+                    "requests": VLM_TRACE, "seed": 6, "chunks": [3, 1, 2],
+                    "max_batch": 8, "cache_len": 576}})
+    return runs
+
+
+def encdec_runs():
+    """Phase 7e's seamless runs: the session (B=8, 1,024 source frames a
+    row, 32 new tokens) and the mixed FIFO engine on phase 7's 16
+    requests, its prefill and decode profiled."""
+    runs = serving_runs()
+    runs.update(session=dict(runs["session"], prompt_len=1024),
+                engines={"mixed": runs["engines"]["mixed"]}, continuous={})
+    return runs
+
+
+def mm_flash_cases():
+    """Phase 5's cases of phase 7e and of phase 6's multimodal configs:
+    qwen2-vl's session and vision prefill (one shape: B=8, S=1,280, GQA
+    64/8 at hd 128, causal) and its continuous admissions in bf16, and
+    its 2-layer f32 shape; seamless's encoder (16/16 at hd 64,
+    non-causal, B=8, S=1,024) and decoder BOS prefill (S=1) in bf16,
+    and both at phase 6's f32 shapes."""
+    import torch
+    cases = flash_cases(vlm_cfg(), vlm_runs(), [two_device_shape()],
+                        VLM_ARCH + " ")
+    from repro_torch.configs.base import get_config
+    cfg = get_config(ENCDEC_ARCH)
+    B, S = encdec_runs()["session"]["batch"], 1024
+    two = LM_TWO_DEVICE
+    for dt, b, s, tag in ((torch.bfloat16, B, S, "session"),
+                          (torch.float32, two["batch"], two["prompt_len"],
+                           "card-vs-CPU")):
+        cases += [(cfg, f"{ENCDEC_ARCH} encoder {tag}", b, s, None, dt,
+                   False),
+                  (cfg, f"{ENCDEC_ARCH} decoder BOS {tag}", b, 1, None, dt,
+                   True)]
+    return cases
+
+
+def vision_prefill(cfg, params, s, device="cuda"):
+    """The session's shape with ``VLM_GRID**2`` patch embeddings spliced
+    over the prefix at distinct (t, h, w) streams: one prefill and
+    ``gen - 1`` greedy decode steps (from position S, one stream value
+    on all three), synchronised and timed; its logits must be finite and
+    differ from a text-only prefill of the same prompts (the splice and
+    the streams reach the model), its tokens in the vocabulary.  Then
+    the prefill and a decode step profiled.  Returns the flash launches
+    of its prefill."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import decode as dec
+    B, S, gen = s["batch"], s["prompt_len"], s["gen"]
+    g = torch.Generator(device=device).manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                            device=device, dtype=torch.int32)
+    ex = mm_extras(cfg, B, S, VLM_GRID, torch.bfloat16, device, 8)
+    fa.reset_launches()
+    _sync()
+    t0 = time.perf_counter()
+    lg, cache = dec.prefill(cfg, params, prompts, ex, cache_len=S + gen + 1)
+    _sync()
+    t1 = time.perf_counter()
+    launches = fa.LAUNCHES["flash_attention"]
+    tok = lg.argmax(-1).to(torch.int32)
+    outs, finite = [tok], bool(torch.isfinite(lg).all())
+    for t in range(gen - 1):
+        lg, cache = dec.decode_step(cfg, params, tok, cache, S + t)
+        tok = lg.argmax(-1).to(torch.int32)
+        outs.append(tok)
+    _sync()
+    t2 = time.perf_counter()
+    finite &= bool(torch.isfinite(lg).all())
+    out = torch.cat(outs, dim=1)
+    text, _ = dec.prefill(cfg, params, prompts, cache_len=S + 1)
+    moved = float((text - dec.prefill(cfg, params, prompts, ex,
+                                      cache_len=S + 1)[0]).abs().max())
+    print(f"  [{cfg.name} vision prefill] B={B} S={S} with "
+          f"{VLM_GRID ** 2} patches spliced, distinct (t, h, w) streams, "
+          f"then {gen - 1} decode steps: prefill_ms={(t1 - t0) * 1e3} "
+          f"decode_ms_per_token={(t2 - t1) / (gen - 1) * 1e3} "
+          f"tokens/s={B * gen / (t2 - t0)} flash_launches={launches}; "
+          f"logits finite {finite}, max change from a text-only prefill "
+          f"{moved:.3e} ({SMI})")
+    if out.shape != (B, gen) or not finite or not moved > 0 or not (
+            (out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"[{cfg.name} vision prefill] tokens "
+                             f"{tuple(out.shape)}, finite {finite}, the "
+                             f"patches moved the logits by {moved}")
+    del cache, text
+    profile_session(cfg, params, s, device, ex)
+    return launches
+
+
+def vlm_serving_phase():
+    """Phase 7e's qwen2-vl-72b part: the session CLI alone (its own
+    params, freed after), then one serving init for the vision prefill
+    and the continuous engine; each run's flash launches held to one an
+    attention layer per prefill.  Returns the flash launches."""
+    import torch
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.steps import init_serve_params
+    cfg, runs = vlm_cfg(), vlm_runs()
+    weights, fold = serving_bytes(cfg)
+    print(f"  [{VLM_ARCH}] {cfg.n_layers} of 80 layers (split after "
+          f"{cfg.split_layer}): reckoned before allocating "
+          f"{weights / 1e9:.2f} GB of bf16 weights, +{fold / 1e9:.2f} GB "
+          f"folded server projections ({SMI})")
+    total = serve_archs({VLM_ARCH: (cfg, dict(runs, continuous={}))})
+    params = init_serve_params(cfg, 0, device="cuda")
+    peak_memory(f"  [{VLM_ARCH} init]")
+    per = attn_layers(cfg)
+    n = vision_prefill(cfg, params, runs["session"])
+    masks = tserve.random_masks(cfg, runs["n_clients"], device="cuda")
+    served = run_continuous(cfg, params, masks, runs, None)
+    for run, (k, prefills) in dict(served, vision=(n, 1)).items():
+        if k != per * prefills:
+            raise AssertionError(f"[{VLM_ARCH} {run}] {k} flash launches "
+                                 f"for {prefills} prefills of {per} layers")
+        print(f"  [{VLM_ARCH} {run}] flash launches {k} = {per} per "
+              f"prefill x {prefills} prefills")
+        total += k
+    del params, masks
+    torch.cuda.empty_cache()
+    return total
+
+
+def encdec_serving_phase():
+    """Phase 7e's seamless-m4t-large-v2 part: its continuous refusal, then
+    the session and the mixed FIFO engine (``run_serving``), each
+    prefill's flash launches held to its encoder's and decoder's
+    self-attention layers (48).  Returns the flash launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serve import ContinuousEngine
+    cfg, runs = get_config(ENCDEC_ARCH), encdec_runs()
+    weights, fold = serving_bytes(cfg)
+    print(f"  [{ENCDEC_ARCH}] {cfg.n_encoder_layers} encoder (split after "
+          f"{cfg.split_layer}) + {cfg.n_layers} decoder layers: reckoned "
+          f"before allocating {weights / 1e9:.2f} GB of bf16 weights, "
+          f"+{fold / 1e9:.2f} GB folded decoder projections ({SMI}); the "
+          f"FIFO trace's {len(runs['requests'])} requests in "
+          f"{len({n for _, n, _ in runs['requests']})} prompt lengths")
+    try:
+        ContinuousEngine(cfg, None, device="cuda")
+    except ValueError as e:
+        print(f"  [{ENCDEC_ARCH}] ContinuousEngine refuses: {e}")
+    else:
+        raise AssertionError(f"ContinuousEngine took {ENCDEC_ARCH}")
+    return serve_archs({ENCDEC_ARCH: (cfg, runs)})
+
+
+# phase 8d: seamless-m4t-large-v2 trained as phase 8b runs it (C=4, B=16,
+# S=128 source frames and tokens, 20 steps in windows of 10, both
+# drivers), cut to ENCDEC_TRAIN_LAYERS encoder and as many decoder
+# layers: reckoned ~1.46 B elements (~47 GB at 32 B an element); all
+# 24 + 24, ~2.4 B (~79 GB), do not fit one card at C=4
+ENCDEC_TRAIN_LAYERS = 12
+
+
+def encdec_trainer_phase(gen):
+    """Phase 8d; returns the launches of its runs."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH),
+                              n_layers=ENCDEC_TRAIN_LAYERS,
+                              n_encoder_layers=ENCDEC_TRAIN_LAYERS)
+    n = train_elements(cfg, LM_TRAIN["cohorts"])
+    gib = n * TRAIN_BYTES_PER_ELEMENT / 2**30
+    print(f"  [{ENCDEC_ARCH}] {cfg.n_encoder_layers} + {cfg.n_layers} "
+          f"layers, reckoned before allocating: {n / 1e9:.3f} B trainable "
+          f"elements x {TRAIN_BYTES_PER_ELEMENT} B = {gib:.2f} GiB at "
+          f"C={LM_TRAIN['cohorts']} ({SMI})")
+    if gib > TRAIN_FIT_GIB:
+        raise AssertionError(f"[{ENCDEC_ARCH}] reckoned {gib:.2f} GiB > "
+                             f"{TRAIN_FIT_GIB}")
+    return lm_trainer_phase(gen, cfg, phase_8b=False)
 
 
 def main() -> int:
@@ -3451,19 +3755,27 @@ def main() -> int:
     cases += flash_cases(ssm_cfg(jamba), ssm_runs(jamba), [], jamba + " ")
     cases += [(jamba_reduced, f"{jamba} reduced {sh[0]}") + sh[1:]
               + (torch.float32,) for sh in [two_device_shape()]]
+    cases += mm_flash_cases()
     flash = check_flash(cases, gen)
     phase_done(5)
 
     # phase 6 ---------------------------------------------------------
     print(f"phase 6: {', '.join(TWO_DEVICE_ARCHS)} prefill and decode on "
           "the card and on the CPU (full width, 2 layers, strict fp32), "
-          f"{jamba} reduced (m a m a) likewise, one train step of the "
+          f"{jamba} reduced (m a m a), {VLM_ARCH} (16 patches at distinct "
+          f"M-RoPE streams) and {ENCDEC_ARCH} (2 + 2 layers, cross-attention"
+          " in prefill and decode) likewise, one train step of the "
           "reduced deepseek-moe-16b and mamba2-370m likewise, and the "
           "continuous, solo and mixed FIFO engines on the card "
           f"({SERVE_ARCH})")
     for arch in TWO_DEVICE_ARCHS:
         lm_on_two_devices(arch)
     lm_on_two_devices(jamba, jamba_reduced)
+    two = LM_TWO_DEVICE["n_layers"]
+    lm_on_two_devices(VLM_ARCH)
+    lm_on_two_devices(ENCDEC_ARCH, dataclasses.replace(
+        get_config(ENCDEC_ARCH), n_layers=two, n_encoder_layers=two,
+        dtype="float32"))
     for arch in ("deepseek-moe-16b", "mamba2-370m"):
         train_step_on_two_devices(arch)
     engines_agree_fp32()
@@ -3509,6 +3821,18 @@ def main() -> int:
     launches["flash_attention"] += ssm_serving_phase()
     phase_done("7d")
 
+    # phase 7e --------------------------------------------------------
+    print(f"phase 7e: vision-text and encoder-decoder serving, bf16: "
+          f"{VLM_ARCH} at published widths, {VLM_LAYERS} of 80 layers, "
+          "through the session CLI, a vision prefill (1,024 patches at "
+          "distinct M-RoPE streams) with 31 decode steps, and "
+          f"ContinuousEngine; {ENCDEC_ARCH} at full width and depth (24 + "
+          "24 layers) through the session CLI and the mixed FIFO engine "
+          "(equal-length sub-batches), its ContinuousEngine refusal")
+    launches["flash_attention"] += vlm_serving_phase()
+    launches["flash_attention"] += encdec_serving_phase()
+    phase_done("7e")
+
     # phase 8 ---------------------------------------------------------
     print(f"phase 8: Table 1 (Mixed-NonIID) at lenet-cifar's published "
           f"widths, C={N_CLIENTS}: the six baselines and two AdaSplit "
@@ -3533,6 +3857,15 @@ def main() -> int:
     for k in ("ntxent_stats", "ntxent_backward", "client_adam"):
         launches[k] += lm_launches[k]
     phase_done("8c")
+
+    # phase 8d --------------------------------------------------------
+    print(f"phase 8d: encoder-decoder training as phase 8b: {ENCDEC_ARCH} "
+          f"at published widths, {ENCDEC_TRAIN_LAYERS} + "
+          f"{ENCDEC_TRAIN_LAYERS} layers")
+    lm_launches = encdec_trainer_phase(gen)
+    for k in ("ntxent_stats", "ntxent_backward", "client_adam"):
+        launches[k] += lm_launches[k]
+    phase_done("8d")
 
     zero = [k for k, v in launches.items() if v == 0]
     if zero:

@@ -1,14 +1,14 @@
 """Config system of the port: the ``ModelConfig`` fields the LeNet path
-and the decoder-only LM path (dense, MoE, SSM and hybrid) read, and the
-registry.
+and the LM path (dense, MoE, SSM, hybrid, vision-text and
+encoder-decoder) read, and the registry.
 
-A copy of the reference's ``configs/base.py`` cut to ``InputShape``,
-the conv backbone and the dense, MoE, SSM and hybrid LM stacks: the
-M-RoPE and encoder-decoder fields and branches are left out (their
-slices bring them), in ``param_count`` too; so is the table of the
+A copy of the reference's ``configs/base.py`` without the table of the
 assigned input shapes, which only the dry run reads.  The hybrid
 interleave (``attn_layer_period``) is jamba's: attention on one layer
-of each period, mamba on the rest.
+of each period, mamba on the rest.  ``mrope_sections`` split the RoPE
+half-dim into qwen2-vl's (t, h, w) sections; an encoder-decoder
+(seamless) has ``n_encoder_layers`` encoder layers and ``n_layers``
+decoder layers, and its client holds the bottom of the encoder.
 """
 from __future__ import annotations
 
@@ -51,6 +51,7 @@ class ModelConfig:
     # attention details
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    mrope_sections: Tuple[int, ...] = ()  # qwen2-vl M-RoPE (t, h, w) dims
     sliding_window: int = 0  # 0 = full attention
     norm: str = "rms"
     tie_embeddings: bool = False  # metadata: the LM head is server-owned
@@ -77,6 +78,15 @@ class ModelConfig:
     attn_layer_period: int = 0
     attn_layer_offset: int = 0
 
+    # encoder-decoder (seamless)
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+
+    # modality frontend stub: embeddings of this many frames / patches
+    # come in precomputed
+    modality: str = "text"  # text | audio | vision_text
+    frontend_frames: int = 0  # audio frames / vision patches (per sequence)
+
     # conv/classification backbone (the paper's own model)
     is_conv: bool = False
     image_size: int = 32
@@ -92,10 +102,11 @@ class ModelConfig:
         if self.head_dim == 0 and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
-    # number of client layers (bottom of the stack)
+    # number of client layers (bottom of the stack / of the encoder)
     @property
     def split_layer(self) -> int:
-        n = self.n_layers
+        n = self.n_encoder_layers if self.is_encoder_decoder \
+            else self.n_layers
         s = max(1, int(round(self.mu * n)))
         if self.attn_layer_period:
             s = max(self.attn_layer_period,
@@ -137,8 +148,9 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: <=2 layers (a hybrid: 4, one ``m a m a``
-        pattern), d_model<=256, <=4 heads, <=4 experts, SSM state <=16,
-        SSM head dim <=32, SSM chunk 32."""
+        pattern; an encoder-decoder <=2 of each), d_model<=256, <=4
+        heads, <=4 experts, SSM state <=16, SSM head dim <=32, SSM chunk
+        32, <=16 frontend frames, M-RoPE sections of the new head dim."""
         d_model = min(self.d_model, 256) or 64
         n_heads = min(self.n_heads, 4)
         head_dim = max(16, d_model // max(n_heads, 1)) if n_heads else 0
@@ -160,18 +172,24 @@ class ModelConfig:
             ssm_headdim=(min(self.ssm_headdim, 32) if self.ssm_state
                          else self.ssm_headdim),
             ssm_chunk=32,
+            frontend_frames=min(self.frontend_frames, 16),
             conv_channels=tuple(min(c, 16) for c in self.conv_channels),
         )
+        if self.is_encoder_decoder:
+            kw["n_encoder_layers"] = min(self.n_encoder_layers, 2)
         if self.attn_layer_period:
             kw.update(attn_layer_period=2, attn_layer_offset=1,
                       moe_layer_period=2, moe_layer_offset=1, n_layers=4)
+        if self.mrope_sections:
+            kw["mrope_sections"] = _mrope_sections_for(head_dim)
         return replace(self, **kw)
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding included once): the
-        reference's conv, dense, MoE and SSM branches (a mamba layer
-        counts its projections and conv weights, as the reference's
-        does)."""
+        reference's conv, dense, MoE, SSM and encoder-decoder branches (a
+        mamba layer counts its projections and conv weights, as the
+        reference's does; an encoder-decoder adds its encoder layers and
+        a cross-attention per decoder layer)."""
         if self.is_conv:
             # rough lenet-style count
             total, cin = 0, 3
@@ -199,6 +217,9 @@ class ModelConfig:
                 total += d * self.n_experts  # router
             elif self.d_ff:
                 total += 3 * d * self.d_ff
+        if self.is_encoder_decoder:
+            total += self.n_encoder_layers * (per_attn + 3 * d * self.d_ff)
+            total += self.n_layers * per_attn  # cross-attention
         return total
 
     def active_param_count(self) -> int:
@@ -209,11 +230,21 @@ class ModelConfig:
         return self.param_count() - inactive
 
 
+def _mrope_sections_for(head_dim: int) -> Tuple[int, ...]:
+    """(t, h, w) sections of a head dim's half: t a half of it, h and w
+    the rest split evenly (w takes the odd one)."""
+    half = head_dim // 2
+    t = half // 2
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 ARCH_MODULES = ["lenet_cifar", "qwen2_0_5b", "olmo_1b", "granite_3_8b",
                 "phi3_mini_3_8b", "deepseek_moe_16b", "qwen3_moe_30b_a3b",
-                "mamba2_370m", "jamba_v0_1_52b"]
+                "mamba2_370m", "jamba_v0_1_52b", "qwen2_vl_72b",
+                "seamless_m4t_large_v2"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -85,11 +85,15 @@ def lenet_flops_per_example(cfg: ModelConfig, part: str = "full") -> float:
 def transformer_matmul_params(cfg: ModelConfig, part: str = "full") -> float:
     """Matmul weights touched per token, active experts only (the
     embedding rows are gathered, not multiplied; the LM head is
-    server-side)."""
+    server-side).  An encoder-decoder's client holds a share of the
+    encoder, taken as half the body, as the reference takes it."""
     full = cfg.active_param_count()
     emb = cfg.padded_vocab() * cfg.d_model
     body = full - 2 * emb if not cfg.is_conv else full
-    frac_client = cfg.split_layer / max(cfg.n_layers, 1)
+    n = cfg.n_encoder_layers if cfg.is_encoder_decoder else cfg.n_layers
+    frac_client = cfg.split_layer / max(n, 1)
+    if cfg.is_encoder_decoder:
+        frac_client *= 0.5
     cl = body * frac_client
     sv = body - cl + emb  # head matmul is server-side
     return {"client": cl, "server": sv, "full": cl + sv}[part]

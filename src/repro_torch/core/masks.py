@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import Segment, model_plan
+from repro_torch.models.transformer import Segment, server_plan
 from repro_torch.weights import to_host, tree_leaves, tree_map
 
 
@@ -44,9 +44,11 @@ def _seg_unit_masks(cfg, seg: Segment, n_clients: int, device):
 
 
 def init_unit_masks(cfg, n_clients: int, device="cuda"):
-    """One entry per server segment: leaves (C, n_rep, U)."""
+    """One entry per server segment (an encoder-decoder's decoder
+    segments: its encoder and cross-attentions stay ungated, as in the
+    reference): leaves (C, n_rep, U)."""
     return [_seg_unit_masks(cfg, s, n_clients, device)
-            for s in model_plan(cfg)["server_segments"]]
+            for s in server_plan(cfg)]
 
 
 def expand_gates(masks, client_ids):
@@ -94,15 +96,16 @@ def fold_unit_masks(cfg, server_params, masks, client: int, *,
     the rows of the following projection: the attention ``wo`` rows of
     a head, the mamba ``out_proj`` row of an inner channel, the
     ``w_down`` rows of an MLP hidden unit, the whole ``w_down`` of an
-    expert), but paid ONCE per serving session.  threshold > 0
+    expert), but paid ONCE per serving session.  An encoder-decoder
+    folds into its decoder's self-attentions and ffns.  threshold > 0
     binarises first.  Only ``wo``, ``out_proj`` and ``w_down`` are
     copied; every other leaf is shared with ``server_params``."""
     gates = gates_for_client(masks, client)
     if threshold > 0:
         gates = binarize(gates, threshold)
     new_segments = []
-    for seg, sp, gs in zip(model_plan(cfg)["server_segments"],
-                           server_params["segments"], gates):
+    for seg, sp, gs in zip(server_plan(cfg), server_params["segments"],
+                           gates):
         sp = list(sp)
         for j, desc in enumerate(seg.body):
             layer = dict(sp[j])

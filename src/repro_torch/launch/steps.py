@@ -141,6 +141,9 @@ def init_train_state(cfg, n_cohorts: int, policy: LaunchPolicy, seed=0, *,
 # Train step (AdaSplit global phase)
 # ---------------------------------------------------------------------------
 
+# the modality inputs a batch may carry beside its tokens
+EXTRAS = ("src_embeds", "vision_embeds", "positions")
+
 
 def build_train_step(cfg, shape: InputShape,
                      policy: Optional[LaunchPolicy] = None, *,
@@ -149,9 +152,13 @@ def build_train_step(cfg, shape: InputShape,
 
     batch: ``tokens``/``labels`` (B, S) int, ``seq_class`` (B,) int and
     ``select`` (C,) float32, on the state's device, rows cohort-major
-    (B = C x b).  metrics: ``l_client``, ``ce`` and ``aux`` (the server's
-    router aux loss, before its coefficient), 0-d float32 device tensors
-    (the means over the microbatch chunks)."""
+    (B = C x b); and the modality inputs where the arch takes them
+    (``EXTRAS``: an encoder-decoder's ``src_embeds`` (B, S, D), a
+    vision-text arch's ``vision_embeds`` (B, F, D) and ``positions``
+    (B, S, 3)), split with the rows into each cohort's client forward
+    and into the server forward.  metrics: ``l_client``, ``ce`` and
+    ``aux`` (the server's router aux loss, before its coefficient), 0-d
+    float32 device tensors (the means over the microbatch chunks)."""
     policy = policy or LaunchPolicy()
     C = n_cohorts
     B, S = shape.global_batch, shape.seq_len
@@ -165,16 +172,19 @@ def build_train_step(cfg, shape: InputShape,
     mb = b // n_micro
     f32 = torch.float32
 
-    def micro_loss(trainables, mtokens, mlabels, mseq_class, select):
+    def micro_loss(trainables, mtokens, mlabels, mseq_class, select,
+                   extras):
         dev = mtokens.device
         # --- client: per-cohort NT-Xent ---
         tk = mtokens.reshape(C, mb, S)
         sc = mseq_class.reshape(C, mb)
+        ex_c = {k: e.reshape((C, mb) + tuple(e.shape[1:]))
+                for k, e in extras.items()}
         cohorts = tree_unstack(trainables["client"]["model"], C)
-        acts = torch.stack([tfm.client_forward(cfg, cohorts[c], tk[c],
-                                               training=True,
-                                               remat=policy.remat)
-                            for c in range(C)])             # (C, mb, S, D)
+        acts = torch.stack([tfm.client_forward(
+            cfg, cohorts[c], tk[c], {k: e[c] for k, e in ex_c.items()},
+            training=True, remat=policy.remat)
+            for c in range(C)])                             # (C, mb, S, D)
         pooled = acts.to(f32).mean(dim=2)                    # (C, mb, D)
         q = client_proj(trainables["client"]["proj"], pooled)
         l_client = ntxent_loss(q, sc, policy.tau).mean()
@@ -184,8 +194,8 @@ def build_train_step(cfg, shape: InputShape,
         client_ids = torch.arange(C, device=dev).repeat_interleave(mb)
         gates = masks_mod.expand_gates(trainables["masks"], client_ids)
         hidden, aux = tfm.server_forward(
-            cfg, trainables["server"], acts_flat, mtokens, gates=gates,
-            window=window, training=True, remat=policy.remat,
+            cfg, trainables["server"], acts_flat, mtokens, extras,
+            gates=gates, window=window, training=True, remat=policy.remat,
             return_hidden=True)
         w = select[client_ids][:, None] * torch.ones((1, S), dtype=f32,
                                                      device=dev)
@@ -197,10 +207,10 @@ def build_train_step(cfg, shape: InputShape,
             + cfg.router_aux_coef * aux
         return l_client + l_server, (l_client, ce, aux)
 
-    def grads_of(leaves, mtokens, mlabels, mseq_class, select, like):
+    def grads_of(leaves, mtokens, mlabels, mseq_class, select, extras, like):
         params = [l.detach().requires_grad_(True) for l in leaves]
         loss, terms = micro_loss(tree_unflatten(like, params), mtokens,
-                                 mlabels, mseq_class, select)
+                                 mlabels, mseq_class, select, extras)
         g = torch.autograd.grad(loss, params, allow_unused=True)
         g = [torch.zeros_like(p) if gi is None else gi
              for p, gi in zip(params, g)]
@@ -217,16 +227,18 @@ def build_train_step(cfg, shape: InputShape,
         leaves = tree_leaves(trainables)
         toks, labs = split(batch["tokens"]), split(batch["labels"])
         scls = split(batch["seq_class"])
+        exs = {k: split(batch[k]) for k in EXTRAS if k in batch}
+        micro = lambda i: {k: e[i] for k, e in exs.items()}
         if n_micro == 1:
             grads, terms = grads_of(leaves, toks[0], labs[0], scls[0],
-                                    batch["select"], trainables)
+                                    batch["select"], micro(0), trainables)
         else:
             grads = [torch.zeros(l.shape, dtype=f32, device=l.device)
                      for l in leaves]
             terms = [torch.zeros((), dtype=f32, device=leaves[0].device)] * 3
             for i in range(n_micro):
                 g, ti = grads_of(leaves, toks[i], labs[i], scls[i],
-                                 batch["select"], trainables)
+                                 batch["select"], micro(i), trainables)
                 grads = [a + gi for a, gi in zip(grads, g)]
                 terms = [a + t for a, t in zip(terms, ti)]
             grads = [g / n_micro for g in grads]

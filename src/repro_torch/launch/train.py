@@ -37,7 +37,6 @@ from repro_torch.core.orchestrator import generator_jitter, ucb_init
 from repro_torch.data.tokens import lm_batch_iterator, lm_client_dataset
 from repro_torch.launch.steps import (LaunchPolicy, build_ucb_train_step,
                                       init_train_state, wrap_window)
-from repro_torch.models import transformer as tfm
 from repro_torch.weights import device_of, tree_map
 
 
@@ -51,13 +50,23 @@ def make_batch(raw):
 
 
 def add_extras(cfg, batch, B, S, rng):
-    """The modality inputs of encoder-decoder (audio) and vision-text
-    archs; their slices are not ported, so such an arch raises, as
-    ``models.transformer`` does.  Text archs take none."""
-    if cfg.family == "audio":
-        tfm._later("cross")
-    if cfg.family == "vlm":
-        tfm._later("frontend")
+    """The modality inputs, drawn from ``rng`` exactly as the reference
+    draws them (float64 normals rounded to bf16 through float32, as
+    ``jnp.asarray`` rounds them): an encoder-decoder's ``src_embeds``
+    (B, S, D), a vision-text arch's ``vision_embeds`` (B, F, D) and its
+    ``positions`` (B, S, 3), ``arange(S)`` on all three streams.  Host
+    (CPU) tensors, added to ``batch`` and returned; a text arch takes
+    none."""
+    def bf16_normal(shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).to(torch.bfloat16)
+    if cfg.is_encoder_decoder:
+        batch["src_embeds"] = bf16_normal((B, S, cfg.d_model))
+    if cfg.modality == "vision_text":
+        batch["vision_embeds"] = bf16_normal(
+            (B, max(cfg.frontend_frames, 1), cfg.d_model))
+        batch["positions"] = torch.arange(S, dtype=torch.int32)[
+            None, :, None].expand(B, S, 3).contiguous()
     return batch
 
 
@@ -220,11 +229,9 @@ class LMAdaSplitTrainer:
         while done < total_steps:
             W = min(log_every, total_steps - done)
             raws = [next(it) for _ in range(W)]
-            for _ in range(W):
-                add_extras(cfg, {}, shape.global_batch, shape.seq_len,
-                           self._rng)
-            host = {k: torch.stack([v[k] for v in map(make_batch, raws)])
-                    for k in ("tokens", "labels", "seq_class")}
+            steps = [add_extras(cfg, make_batch(raw), shape.global_batch,
+                                shape.seq_len, self._rng) for raw in raws]
+            host = {k: torch.stack([b[k] for b in steps]) for k in steps[0]}
             keys = list(host)
             *vals, jitters = self._upload(
                 [host[k] for k in keys] + [self._jitter_rows(self._step, W)])

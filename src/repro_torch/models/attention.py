@@ -1,17 +1,24 @@
-"""GQA attention: init, full-sequence forward (train / prefill) and
-single-token decode with an (optionally windowed ring-buffer) KV cache.
-Port of ``repro.models.attention``, plain-RoPE branch only.
+"""GQA attention: init, full-sequence forward (train / prefill /
+encoder), cross-attention over encoder states, and single-token decode
+with an (optionally windowed ring-buffer) KV cache.  Port of
+``repro.models.attention``: RoPE, or qwen2-vl's M-RoPE over (t, h, w)
+position streams.
 
 Every full-sequence self-attention goes through
 ``kernels.flash_attention`` (the CUDA kernel on the card), ragged
-batches included: where the reference masks keys with ``kv_valid`` and
-leaves its flash path for the einsum one, the port passes the prefix
-length ``kv_len`` to the kernel.  Where the reference takes
-``mha_chunked`` (S > 2048, S % 256 == 0, no key mask), the port rounds
-q, k and v to bf16 as it does, and runs ``mha_chunked`` on the CPU and
-the bf16 flash kernel on the card (``chunked_attention``).  Decode
-attention is ``mha_einsum`` in plain torch ops, as in the reference (one
-query row per step).
+batches and an encoder's non-causal attention included: where the
+reference masks keys with ``kv_valid`` and leaves its flash path for
+the einsum one, the port passes the prefix length ``kv_len`` to the
+kernel.  Where the reference takes ``mha_chunked`` (S > 2048, S % 256
+== 0, no key mask), the port rounds q, k and v to bf16 as it does, and
+runs ``mha_chunked`` on the CPU and the bf16 flash kernel on the card
+(``chunked_attention``).  Cross-attention (``kv_override``: queries of
+the decoder, keys and values of the encoder, Sq != Sk) never reaches
+the flash kernel, which takes one S: it takes the reference's choice,
+``mha_einsum``, or ``mha_chunked`` above Sq = 2048 (Sq % 256 == 0), in
+torch ops on the card as on the CPU (``cross_attention``).  Decode
+attention is ``mha_einsum`` in plain torch ops, as in the reference
+(one query row per step).
 
 The flash kernel has no backward, as the reference's Pallas kernel has
 none, and refuses inputs that need a gradient.  The LM trainer asks
@@ -28,7 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_mrope, apply_rope, dense_init
 
 NEG_INF = -1e30
 
@@ -62,10 +69,27 @@ def _project_qkv(p, x, cfg, dtype):
 
 
 def _rope_qk(q, k, cfg, positions):
-    if positions is None or not cfg.rope_theta > 0:
+    """RoPE on q and k: M-RoPE where the config has sections (positions
+    (B, S, 3)), else plain RoPE where ``rope_theta`` > 0 (positions
+    (B, S)); none without positions (an encoder, a cross-attention)."""
+    if positions is None:
         return q, k
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta))
+    if cfg.mrope_sections:
+        return tuple(apply_mrope(t, positions, cfg.rope_theta,
+                                 cfg.mrope_sections) for t in (q, k))
+    if cfg.rope_theta > 0:
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta))
+    return q, k
+
+
+def _project_q(p, x, cfg, dtype):
+    """The query projection alone (a cross-attention's), (B, S, Hq, hd)."""
+    B, S, _ = x.shape
+    q = x @ p["wq"].to(dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dtype)
+    return q.reshape(B, S, cfg.n_heads, cfg.head_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -209,9 +233,31 @@ def training_attention(q, k, v, *, causal: bool, window: int = 0,
                       kv_valid=kv_valid)
 
 
+def _chunk(n: int) -> int:
+    """The reference's block of ``min(1024, n)`` where that divides n, else
+    the largest block of at most 1024 that does (where the reference's
+    chunk assertion fails)."""
+    return n if n <= 1024 else math.gcd(n, 1024)
+
+
+def cross_attention(q, k, v):
+    """Non-causal attention of (B, Sq, Hq, hd) decoder queries over
+    (B, Sk, Hkv, hd) encoder keys and values, as the reference's
+    ``attn_forward`` computes it with ``kv_override``: ``mha_chunked``
+    (q, k, v, P rounded to bf16) above Sq = 2048 with Sq % 256 == 0,
+    else ``mha_einsum``; torch ops on every device, differentiable."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sq > 2048 and Sq % 256 == 0:
+        return mha_chunked(q, k, v, causal=False, q_chunk=_chunk(Sq),
+                           kv_chunk=_chunk(Sk))
+    return mha_einsum(q, k, v, causal=False)
+
+
 def attn_forward(p, x, cfg, *, positions, causal=True, window=0,
-                 head_gate=None, kv_len=None, training=False):
-    """Full-sequence self-attention (train / prefill).
+                 head_gate=None, kv_len=None, training=False,
+                 kv_override=None):
+    """Full-sequence attention (train / prefill / encoder; with
+    ``kv_override`` a cross-attention).
 
     kv_len: optional (B,) int32 count of each row's valid keys for
     right-padded ragged batches — keys past it contribute nothing to
@@ -222,10 +268,28 @@ def attn_forward(p, x, cfg, *, positions, causal=True, window=0,
     head's output before the wo projection.
     training: the reference's differentiable training attention
     (``training_attention``) in place of the flash kernel.
+    kv_override: (k, v) already projected (``cross_kv``): a
+    cross-attention, its queries without RoPE, non-causal, unwindowed,
+    through ``cross_attention`` (never the flash kernel).
     Returns (out, (k, v)) so prefill can stash the cache."""
     dtype = x.dtype
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, dtype)
+    if kv_override is not None:
+        k, v = kv_override
+        out = cross_attention(_project_q(p, x, cfg, dtype), k, v)
+    else:
+        out, (k, v) = _self_attention(p, x, cfg, positions, causal, window,
+                                      kv_len, training)
+    out = _head_gate(out, head_gate, dtype)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"].to(dtype), (k, v)
+
+
+def _self_attention(p, x, cfg, positions, causal, window, kv_len, training):
+    """``attn_forward``'s self-attention before the head gate: returns
+    (out (B, S, Hq, hd), (k, v))."""
+    S = x.shape[1]
+    q, k, v = _project_qkv(p, x, cfg, x.dtype)
     q, k = _rope_qk(q, k, cfg, positions)
     if training:
         out = training_attention(q, k, v, causal=causal, window=window,
@@ -237,9 +301,7 @@ def attn_forward(p, x, cfg, *, positions, causal=True, window=0,
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window, kv_len=kv_len).transpose(1, 2)
-    out = _head_gate(out, head_gate, dtype)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"].to(dtype), (k, v)
+    return out, (k, v)
 
 
 def init_kv_cache(cfg, batch, length, dtype, device="cuda"):
@@ -248,19 +310,30 @@ def init_kv_cache(cfg, batch, length, dtype, device="cuda"):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attn_decode(p, x, cache, pos, cfg, *, window=0, head_gate=None):
+def attn_decode(p, x, cache, pos, cfg, *, window=0, head_gate=None,
+                kv_override=None):
     """One-token decode.  x: (B, 1, D).
 
     pos is a scalar (an int or a 0-d tensor: the whole batch at one
     position) or a (B,) int tensor of PER-SLOT positions: each row
     writes its K/V at its own cache slot and attends only keys at
-    ``idx <= pos[b]``.  With ``window`` the cache is a ring buffer of
-    that length.  The cache is updated IN PLACE (the reference returns
-    a new one; here the old one is not needed again and a copy per step
-    would double the cache traffic); returns (out, cache)."""
+    ``idx <= pos[b]``; under M-RoPE it is the position of all three
+    streams.  With ``window`` the cache is a ring buffer of that
+    length.  The cache is updated IN PLACE (the reference returns a new
+    one; here the old one is not needed again and a copy per step would
+    double the cache traffic); returns (out, cache).
+
+    kv_override: a cross-attention's (k, v) over the encoder states
+    (the cache's ``cross_k``/``cross_v``): the query attends all of
+    them, no cache is written and ``cache`` comes back as given."""
     dtype = x.dtype
     B = x.shape[0]
     hq, hd = cfg.n_heads, cfg.head_dim
+    if kv_override is not None:
+        out = mha_einsum(_project_q(p, x, cfg, dtype), *kv_override,
+                         causal=False)
+        out = _head_gate(out, head_gate, dtype).reshape(B, 1, hq * hd)
+        return out @ p["wo"].to(dtype), cache
     q, k, v = _project_qkv(p, x, cfg, dtype)
     per_slot = torch.is_tensor(pos) and pos.ndim == 1
     if per_slot:
@@ -269,6 +342,8 @@ def attn_decode(p, x, cache, pos, cfg, *, window=0, head_gate=None):
     else:
         pos = int(pos)
         posb = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    if cfg.mrope_sections:               # one position on all three streams
+        posb = posb[..., None].expand(B, 1, 3)
     q, k = _rope_qk(q, k, cfg, posb)
     k_all, v_all = cache["k"], cache["v"]
     L = k_all.shape[1]
@@ -292,3 +367,16 @@ def attn_decode(p, x, cache, pos, cfg, *, window=0, head_gate=None):
     out = _head_gate(out, head_gate, dtype)
     out = out.reshape(B, 1, hq * hd)
     return out @ p["wo"].to(dtype), cache
+
+
+def cross_kv(p, enc_out, cfg, dtype):
+    """Project encoder states (B, S, D) once into a cross-attention's K/V,
+    (B, S, Hkv, hd) each."""
+    B, S, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    k = enc_out @ p["wk"].to(dtype)
+    v = enc_out @ p["wv"].to(dtype)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    return k.reshape(B, S, hkv, hd), v.reshape(B, S, hkv, hd)

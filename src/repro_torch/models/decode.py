@@ -1,14 +1,18 @@
 """Inference paths over the composed client+server model: cache init,
 prefill (a cache-building forward) and single-token decode.  Port of
-``repro.models.decode``, decoder-only.
+``repro.models.decode``.
 
 Cache layout: ``{"client": [seg0_cache, ...], "server": [...]}``; each
 segment cache has leading ``n_rep`` leaves, keyed "0".."P-1" per body
 position, each entry ``{"mixer": ...}``: an attention layer's
 ``{"k", "v"}`` of shape ``(n_rep, B, L, Hkv, hd)`` (windowed: ring
 buffers), a mamba layer's ``{"state": (n_rep, B, H, P, N) float32,
-"conv": (n_rep, B, K-1, conv_dim)}``.  Decode updates the cache in
-place.
+"conv": (n_rep, B, K-1, conv_dim)}``.  An encoder-decoder's cache is
+``{"server": [...]}``, its decoder's alone, each layer's entry with
+``cross_k``/``cross_v`` ``(n_rep, B, Sk, Hkv, hd)`` beside ``mixer``:
+its prefill encodes the source once and primes the decoder with one BOS
+token (slot 0 of its self-attention cache), as the reference's does.
+Decode updates the cache in place.
 """
 from __future__ import annotations
 
@@ -22,27 +26,39 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_norm, embed, unembed, \
     vocab_pad_bias
 from repro_torch.models.transformer import (Segment, _client_inputs, _dtype,
-                                            _positions_for, model_plan,
-                                            run_segments, run_segments_decode)
+                                            _positions_for, encode,
+                                            model_plan, run_segments,
+                                            run_segments_decode)
 from repro_torch.weights import tree_map
 
 
-def _seg_cache(cfg, seg: Segment, batch, cache_len, dtype, window, device):
+def _seg_cache(cfg, seg: Segment, batch, cache_len, dtype, window, device,
+               src_len=0):
     L = min(cache_len, window) if window else cache_len
+    stack = lambda t: t.expand((seg.n_rep,) + t.shape).contiguous()
 
     def one(desc):
         c = attn.init_kv_cache(cfg, batch, L, dtype, device) \
             if desc.mixer == "attn" else \
             ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
-        return {n: t.expand((seg.n_rep,) + t.shape).contiguous()
-                for n, t in c.items()}
-    return {str(j): {"mixer": one(d)} for j, d in enumerate(seg.body)}
+        out = {"mixer": {n: stack(t) for n, t in c.items()}}
+        if desc.cross:
+            kv = attn.init_kv_cache(cfg, batch, src_len, dtype, device)
+            out.update(cross_k=stack(kv["k"]), cross_v=stack(kv["v"]))
+        return out
+    return {str(j): one(d) for j, d in enumerate(seg.body)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, dtype=None,
-               window: int = 0, device="cuda"):
+               window: int = 0, device="cuda", src_len: int = 0):
+    """Zero caches; an encoder-decoder's decoder alone, its cross K/V of
+    ``src_len`` encoder positions."""
     dtype = _dtype(cfg, dtype)
     plan = model_plan(cfg)
+    if cfg.is_encoder_decoder:
+        return {"server": [_seg_cache(cfg, s, batch, cache_len, dtype,
+                                      window, device, src_len)
+                           for s in plan["server_dec_segments"]]}
     return {side: [_seg_cache(cfg, s, batch, cache_len, dtype, window,
                               device)
                    for s in plan[f"{side}_segments"]]
@@ -75,31 +91,33 @@ def _ring_arrange(k_full, window, cache_len):
 
 
 def run_segments_prefill(cfg, segments, seg_params, x, *, positions,
-                         window=0, gates=None, cache_len=0, kv_len=None):
+                         window=0, gates=None, cache_len=0, kv_len=None,
+                         cross=None):
     """Like ``run_segments`` but also emits per-layer caches: an attention
     layer's K/V arranged for decode, a mamba layer's final state and
-    conv tail.
+    conv tail, a decoder layer's cross K/V over ``cross`` (the encoder
+    states).
 
     kv_len: optional (B,) int32 valid-key count per row for ragged
     right-padded prompts, applied to every self-attention (the
-    reference's prefix ``kv_valid``).  Returns (x, caches)."""
+    reference's prefix ``kv_valid``; never to a cross-attention, whose
+    keys are the encoder's).  Returns (x, caches)."""
     per_layer: Dict[Any, Any] = {}
 
     def stash(si, j, cache):
-        if isinstance(cache, dict):                 # mamba: {state, conv}
-            per_layer.setdefault((si, j), []).append(cache)
-        else:                                       # attention: (k, v)
-            per_layer.setdefault((si, j), []).append(
-                {name: _ring_arrange(t, window, cache_len)
-                 for name, t in zip(("k", "v"), cache)})
+        mixer = cache["mixer"]
+        if not isinstance(mixer, dict):             # attention: (k, v)
+            mixer = {name: _ring_arrange(t, window, cache_len)
+                     for name, t in zip(("k", "v"), mixer)}
+        per_layer.setdefault((si, j), []).append(dict(cache, mixer=mixer))
 
     x, _ = run_segments(cfg, segments, seg_params, x, positions=positions,
                         window=window, gates=gates, kv_len=kv_len,
-                        on_layer=stash)
-    caches = [{str(j): {"mixer": {
-        name: torch.stack([c[name] for c in per_layer[(si, j)]])
-        for name in per_layer[(si, j)][0]}}
-        for j in range(len(seg.body))} for si, seg in enumerate(segments)]
+                        on_layer=stash, cross=cross)
+    caches = [{str(j): tree_map(lambda *ts: torch.stack(ts),
+                                *per_layer[(si, j)])
+               for j in range(len(seg.body))}
+              for si, seg in enumerate(segments)]
     return x, caches
 
 
@@ -117,10 +135,31 @@ def prefill(cfg: ModelConfig, params, tokens, extras=None, *, gates=None,
     and keys past it are masked out of every self-attention
     (``kv_len = last_index + 1``), so a ragged batch prefill equals
     prefilling each prompt alone.  A stack with mamba layers takes no
-    ``last_index`` (their state would fold the pad tokens in)."""
+    ``last_index`` (their state would fold the pad tokens in).
+
+    An encoder-decoder encodes ``extras["src_embeds"]`` (B, Sk, D) and
+    primes its decoder with one BOS token (id 0, position 0): the
+    logits are the BOS step's, the self-attention caches hold it at
+    slot 0 (``cache_len`` defaults to S + 64, S the prompt's length) and
+    each decoder layer's cross K/V are stashed.  ``tokens`` give only
+    the batch and S there, and ``last_index`` is ignored, as in the
+    reference."""
     dtype = _dtype(cfg, dtype)
     plan = model_plan(cfg)
     pc, ps = params["client"], params["server"]
+    if cfg.is_encoder_decoder:
+        src = _client_inputs(cfg, pc, tokens, extras, dtype)
+        enc, _ = run_segments(cfg, plan["client_segments"], pc["segments"],
+                              src)
+        enc = encode(cfg, ps, enc)
+        B = tokens.shape[0]
+        bos = torch.zeros((B, 1), dtype=torch.long, device=tokens.device)
+        x, caches = run_segments_prefill(
+            cfg, plan["server_dec_segments"], ps["segments"],
+            embed(ps["dec_embed"], bos, dtype), positions=bos,
+            window=window, gates=gates, cross=enc,
+            cache_len=cache_len or tokens.shape[1] + 64)
+        return _logits(cfg, ps, x[:, -1:]), {"server": caches}
     positions = _positions_for(cfg, tokens, extras)
     x = _client_inputs(cfg, pc, tokens, extras, dtype)
     cache_len = cache_len or tokens.shape[1] + 64
@@ -139,19 +178,24 @@ def prefill(cfg: ModelConfig, params, tokens, extras=None, *, gates=None,
         cfg, plan["server_segments"], ps["segments"], x,
         positions=positions, window=window, gates=gates,
         cache_len=cache_len, kv_len=kv_len)
-    x = apply_norm(ps["final_norm"], x, cfg.norm)
     x_last = x[:, -1:] if last_index is None else \
         x[torch.arange(x.shape[0], device=x.device), last_index][:, None]
-    logits = unembed(ps["lm_head"], x_last)
-    logits = logits + vocab_pad_bias(cfg.vocab_size, cfg.padded_vocab(),
-                                     x.device)
-    return logits, {"client": c_caches, "server": s_caches}
+    return _logits(cfg, ps, x_last), {"client": c_caches, "server": s_caches}
+
+
+def _logits(cfg, ps, x):
+    """The server's final norm, LM head and vocab pad bias on (B, 1, D)
+    hidden states -> float32 logits."""
+    x = apply_norm(ps["final_norm"], x, cfg.norm)
+    return unembed(ps["lm_head"], x) + vocab_pad_bias(
+        cfg.vocab_size, cfg.padded_vocab(), x.device)
 
 
 def slot_serving_ok(cfg: ModelConfig) -> bool:
     """Whether the arch supports ragged / per-slot batches: decoder-only
-    attention stacks (SSM state folds pad tokens in irreversibly)."""
-    if cfg.is_conv:
+    attention stacks (SSM state folds pad tokens in irreversibly, and an
+    encoder-decoder's decoder has no ragged prompt axis)."""
+    if cfg.is_encoder_decoder or cfg.is_conv:
         return False
     plan = model_plan(cfg)
     return all(d.mixer == "attn"
@@ -186,10 +230,18 @@ def decode_step(cfg: ModelConfig, params, token, cache, pos, *, gates=None,
     of PER-SLOT positions (each row decodes at its own context length,
     see ``attention.attn_decode``).  gates apply to the server segments
     only; as in :func:`prefill`, leaves may carry a per-example B axis.
-    The cache is updated in place.  Returns (logits (B, 1, V), cache)."""
+    The cache is updated in place.  Returns (logits (B, 1, V), cache).
+    An encoder-decoder steps its decoder alone, over the cross K/V its
+    prefill stashed."""
     dtype = _dtype(cfg, dtype)
     plan = model_plan(cfg)
     pc, ps = params["client"], params["server"]
+    if cfg.is_encoder_decoder:
+        x, caches = run_segments_decode(
+            cfg, plan["server_dec_segments"], ps["segments"],
+            embed(ps["dec_embed"], token, dtype), cache["server"], pos,
+            window=window, gates=gates)
+        return _logits(cfg, ps, x), {"server": caches}
     x = embed(pc["embed"], token, dtype)
     x, c_caches = run_segments_decode(
         cfg, plan["client_segments"], pc["segments"], x, cache["client"],
@@ -197,8 +249,4 @@ def decode_step(cfg: ModelConfig, params, token, cache, pos, *, gates=None,
     x, s_caches = run_segments_decode(
         cfg, plan["server_segments"], ps["segments"], x, cache["server"],
         pos, window=window, gates=gates)
-    x = apply_norm(ps["final_norm"], x, cfg.norm)
-    logits = unembed(ps["lm_head"], x)
-    logits = logits + vocab_pad_bias(cfg.vocab_size, cfg.padded_vocab(),
-                                     x.device)
-    return logits, {"client": c_caches, "server": s_caches}
+    return _logits(cfg, ps, x), {"client": c_caches, "server": s_caches}

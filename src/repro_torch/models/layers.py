@@ -1,6 +1,5 @@
-"""Shared layer primitives of the LM stack: norms, RoPE, embeddings,
-projection init (port of ``repro.models.layers``, the M-RoPE half left
-out).
+"""Shared layer primitives of the LM stack: norms, RoPE and M-RoPE,
+embeddings, projection init (port of ``repro.models.layers``).
 
 Layers are functions over nested dicts of tensors; initialisers draw
 from an explicit ``torch.Generator`` and create on ``gen.device``.
@@ -61,7 +60,7 @@ def apply_norm(params, x, kind: str, eps: float = 1e-6):
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 
@@ -77,6 +76,29 @@ def apply_rope(x, positions, theta: float):
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)
     ang = positions[..., None].to(torch.float32) * freqs   # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """Multimodal RoPE (Qwen2-VL).  x: (..., S, H, hd); positions3:
+    (..., S, 3), the (t, h, w) position ids.  ``sections`` partition the
+    half-dim: the frequencies of section s rotate with stream s."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"the half-dim {half}")
+    freqs = rope_freqs(hd, theta, device=x.device)
+    # each section's stream repeated over its frequencies, by views and
+    # one cat: an index tensor built from ``sections`` would be a
+    # host-to-device copy (and a sync) at every call
+    p = positions3.to(torch.float32)
+    pos = torch.cat([p[..., i:i + 1].expand(p.shape[:-1] + (n,))
+                     for i, n in enumerate(sections)], dim=-1)
+    ang = pos * freqs                                     # (..., S, half)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

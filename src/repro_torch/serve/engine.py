@@ -13,9 +13,12 @@ are RIGHT-padded, and each example's last-token logits and decode
 positions are its own (``last_index`` + per-slot ``pos`` through
 ``models.decode``), so a ragged batch decodes the same tokens as
 serving each request alone.  A stack that cannot mask pad state (an
-SSM or hybrid one: its mixers fold every token into their state) runs
-a ragged batch as equal-length sub-batches instead, in the order of
-their first request, as the reference's ``_ragged_ok`` fallback does.
+SSM or hybrid one: its mixers fold every token into their state; an
+encoder-decoder, whose decoder has no ragged prompt axis) runs a ragged
+batch as equal-length sub-batches instead, in the order of their first
+request, as the reference's ``_ragged_ok`` fallback does.  An
+encoder-decoder's batch is given zero source frame embeddings of
+(B, prompt length, D) in bf16, as the reference's engine gives it.
 A finished request's row keeps computing until the batch's largest
 budget, but each request is billed at its own budget and its latency
 is admission -> completion of ITS last token.
@@ -196,8 +199,8 @@ class ServeEngine:
         cfg = self.cfg
         lens = np.array([len(r.prompt) for r in batch], np.int32)
         if len(set(lens.tolist())) > 1 and not dec.slot_serving_ok(cfg):
-            # an SSM stack cannot mask pad state: exact equal-length
-            # sub-batches (correctness over batching)
+            # an SSM or encoder-decoder stack cannot mask pad state:
+            # exact equal-length sub-batches (correctness over batching)
             by_len: Dict[int, List[Request]] = {}
             for r in batch:
                 by_len.setdefault(len(r.prompt), []).append(r)
@@ -219,8 +222,14 @@ class ServeEngine:
         prompts = torch.from_numpy(prompts_np).to(self.device)
         lens_dev = torch.from_numpy(lens).to(self.device)
         last_index = lens_dev - 1 if ragged else None
-        logits, cache = dec.prefill(cfg, params, prompts, window=self.window,
-                                    gates=gates, cache_len=plen + gen + 1,
+        extras = None
+        if cfg.is_encoder_decoder:
+            extras = {"src_embeds": torch.zeros(
+                (len(batch), plen, cfg.d_model), dtype=torch.bfloat16,
+                device=self.device)}
+        logits, cache = dec.prefill(cfg, params, prompts, extras,
+                                    window=self.window, gates=gates,
+                                    cache_len=plen + gen + 1,
                                     last_index=last_index)
         tok = logits.argmax(dim=-1).to(torch.int32)
         outs = [tok]

@@ -152,11 +152,16 @@ def test_config_matches_reference(arch, narrow):
 
 # the registered LM archs beyond this file's dense three
 OTHER_ARCHS = ("qwen2-0.5b", "deepseek-moe-16b", "qwen3-moe-30b-a3b",
-               "mamba2-370m", "jamba-v0.1-52b")
+               "mamba2-370m", "jamba-v0.1-52b", "qwen2-vl-72b",
+               "seamless-m4t-large-v2")
 
 
 def test_list_archs_is_the_registered_set_of_nine():
-    assert list_archs() == sorted(ARCHS + OTHER_ARCHS)
+    """The registered LM archs (nine until the vision-text and
+    encoder-decoder configs joined them: eleven), the reference's
+    list."""
+    from repro.configs.base import list_archs as jlist_archs
+    assert list_archs() == sorted(ARCHS + OTHER_ARCHS) == jlist_archs()
     assert list_archs(include_paper=True) == sorted(
         ARCHS + OTHER_ARCHS + ("lenet-cifar",))
     assert get_config("lenet-cifar").param_count() == \
@@ -164,13 +169,18 @@ def test_list_archs_is_the_registered_set_of_nine():
 
 
 def test_serve_cli_takes_the_registered_archs():
+    """olmo-1b and the two multimodal archs, reduced, through the CLI (the
+    encoder-decoder's source frames drawn by the CLI); an unknown name is
+    refused."""
     from repro_torch.launch import serve as tserve
-    out = tserve.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu",
-                       "--batch", "2", "--prompt-len", "8", "--gen", "2",
-                       "--fold-mask"])
-    assert out.shape == (2, 2)
+    for arch in ("olmo-1b", "qwen2-vl-72b", "seamless-m4t-large-v2"):
+        out = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                           "--batch", "2", "--prompt-len", "8", "--gen",
+                           "2", "--fold-mask"])
+        assert out.shape == (2, 2)
+        assert ((out >= 0) & (out < get_config(arch).vocab_size)).all()
     with pytest.raises(SystemExit):
-        tserve.main(["--arch", "qwen2-vl-72b", "--device", "cpu"])
+        tserve.main(["--arch", "qwen2-vl-7b", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["equal", "ragged"])

@@ -1170,3 +1170,76 @@ def test_moe_and_ssm_train_step_on_card_matches_cpu(cuda, arch):
                         tree_leaves(new_c["opt"][key])):
             scale = float(c.abs().max()) or 1.0
             assert float((a.cpu() - c).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,hd,S,causal", [
+    (8, 64, 8, 128, 1280, True), (8, 16, 16, 64, 1024, False),
+    (8, 16, 16, 64, 1, True)],
+    ids=["qwen2-vl-session", "seamless-encoder", "seamless-decoder-bos"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_multimodal_shapes_match_plain(cuda, B, Hq, Hkv, hd,
+                                                       S, causal, dtype):
+    """The three prefill shapes the multimodal families give the kernel:
+    qwen2-vl-72b's GQA 64/8 at hd 128 at its session's S = 1,280 (the
+    patch prefix spliced), seamless-m4t-large-v2's encoder (16/16 at hd
+    64, non-causal, S = 1,024) and its decoder's BOS prefill (S = 1).
+    bf16 within 2e-2, f32 within 2e-5 of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((B, S, h, hd), device=cuda, generator=gen)
+               .to(dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+    before = tfa.LAUNCHES["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "seamless-m4t-large-v2"])
+def test_multimodal_prefill_and_decode_on_card_match_cpu(cuda, arch):
+    """The reduced config in float32 from the same params on the card and
+    on the CPU: a prefill with the modality inputs (16 patches at
+    distinct (t, h, w) streams; 12 source frames whose cross-attention
+    runs in the prefill and in each decode step) and two decode steps
+    from position S; logits within 1e-4 of their largest magnitude, and
+    one flash launch a self-attention layer on the card."""
+    from repro_torch.launch.steps import init_serve_params
+    from repro_torch.models import decode as dec
+    from repro_torch.weights import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    gpu = init_serve_params(cfg, 0, "float32", device="cuda")
+    cpu = tree_map(lambda t: t.cpu(), gpu)
+    rng = np.random.default_rng(0)
+    B, S = 2, 24
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                            .astype(np.int32))
+    if cfg.is_encoder_decoder:
+        ex = {"src_embeds": torch.from_numpy(
+            rng.normal(0, 1, (B, 12, cfg.d_model)).astype(np.float32))}
+        layers = cfg.n_layers + cfg.n_encoder_layers
+    else:
+        pos = np.concatenate([np.stack(np.meshgrid(
+            [0], np.arange(4), np.arange(4), indexing="ij"), -1)
+            .reshape(16, 3), 4 + np.arange(S - 16)[:, None].repeat(3, 1)])
+        ex = {"vision_embeds": torch.from_numpy(
+            rng.normal(0, 1, (B, 16, cfg.d_model)).astype(np.float32)),
+              "positions": torch.from_numpy(
+                  np.broadcast_to(pos, (B, S, 3)).astype(np.int32).copy())}
+        layers = cfg.n_layers
+    ex_gpu = {k: v.cuda() for k, v in ex.items()}
+
+    def close(a, b):
+        err = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+        assert err <= 1e-4, err
+    before = tfa.LAUNCHES["flash_attention"]
+    lg, cg = dec.prefill(cfg, gpu, toks.cuda(), ex_gpu, cache_len=S + 3)
+    assert tfa.LAUNCHES["flash_attention"] == before + layers
+    lc, cc = dec.prefill(cfg, cpu, toks, ex, cache_len=S + 3)
+    close(lg, lc)
+    for t in range(2):
+        tok = lc.argmax(-1).to(torch.int32)
+        lg, cg = dec.decode_step(cfg, gpu, tok.cuda(), cg, S + t)
+        lc, cc = dec.decode_step(cfg, cpu, tok, cc, S + t)
+        close(lg, lc)

@@ -112,17 +112,22 @@ def _np(tree):
 # ---------------------------------------------------------------------------
 
 
+EXTRAS = ("src_embeds", "vision_embeds", "positions")
+
+
 def oracle_step(cfg, C, B, policy):
     """The reference's train_step without a mesh: returns
-    step(state, batch) -> (state, metrics with the grads)."""
+    step(state, batch) -> (state, metrics with the grads).  A batch's
+    modality inputs (``EXTRAS``) are split and threaded as the
+    reference's ``_extras_from_batch`` and ``micro_loss`` thread them."""
     b = B // C
     n_micro = max(1, min(policy.microbatch, b))
     while b % n_micro:
         n_micro -= 1
     mb = b // n_micro
 
-    def cohort_client_loss(cp, tokens_b, seq_class_b):
-        acts = jtfm.client_forward(cfg, cp["model"], tokens_b, None,
+    def cohort_client_loss(cp, tokens_b, seq_class_b, extras_b):
+        acts = jtfm.client_forward(cfg, cp["model"], tokens_b, extras_b,
                                    remat=policy.remat)
         pooled = jnp.mean(acts.astype(jnp.float32), axis=1)
         q = jclient_proj(cp["proj"], pooled)
@@ -130,16 +135,22 @@ def oracle_step(cfg, C, B, policy):
 
     vmapped_client = jax.vmap(cohort_client_loss)
 
-    def micro_loss(trainables, mtokens, mlabels, mseq_class, select):
+    def micro_loss(trainables, mtokens, mlabels, mseq_class, select,
+                   extras):
+        S = mtokens.shape[1]
+        ex_c = None
+        if extras is not None:
+            ex_c = jax.tree.map(
+                lambda e: e.reshape((C, mb) + e.shape[1:]), extras)
         closs, acts = vmapped_client(trainables["client"],
                                      mtokens.reshape(C, mb, S),
-                                     mseq_class.reshape(C, mb))
+                                     mseq_class.reshape(C, mb), ex_c)
         l_client = jnp.mean(closs)
         acts_flat = jax.lax.stop_gradient(acts).reshape(C * mb, S, -1)
         client_ids = jnp.repeat(jnp.arange(C), mb)
         gates = jmasks.expand_gates(trainables["masks"], client_ids)
         hidden, aux = jtfm.server_forward(
-            cfg, trainables["server"], acts_flat, mtokens, None,
+            cfg, trainables["server"], acts_flat, mtokens, extras,
             gates=gates, remat=policy.remat, return_hidden=True)
         w = select[client_ids][:, None] * jnp.ones((1, S), jnp.float32)
         ce = jchunked_ce(hidden, trainables["server"]["lm_head"]["table"],
@@ -159,20 +170,24 @@ def oracle_step(cfg, C, B, policy):
         trainables, opt = state["trainables"], state["opt"]
         toks, labs = split(batch["tokens"]), split(batch["labels"])
         scls = split(batch["seq_class"])
+        exs = {k: split(batch[k]) for k in EXTRAS if k in batch} or None
         if n_micro == 1:
-            (_, (lc, ce)), grads = grad_fn(trainables, toks[0], labs[0],
-                                           scls[0], batch["select"])
+            (_, (lc, ce)), grads = grad_fn(
+                trainables, toks[0], labs[0], scls[0], batch["select"],
+                jax.tree.map(lambda e: e[0], exs))
         else:
             def micro(carry, xs):
                 g_acc, lc_acc, ce_acc = carry
-                (_, (lc, ce)), g = grad_fn(trainables, *xs, batch["select"])
+                *xs, mex = xs
+                (_, (lc, ce)), g = grad_fn(trainables, *xs, batch["select"],
+                                           mex)
                 return (jax.tree.map(jnp.add, g_acc, g), lc_acc + lc,
                         ce_acc + ce), None
             zeros = jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32),
                                  trainables)
             (grads, lc, ce), _ = jax.lax.scan(
                 micro, (zeros, jnp.zeros(()), jnp.zeros(())),
-                (toks, labs, scls))
+                (toks, labs, scls, exs))
             grads = jax.tree.map(lambda g: g / n_micro, grads)
             lc, ce = lc / n_micro, ce / n_micro
         new_t, new_opt = jadam_update(trainables, grads, opt, lr=policy.lr)
