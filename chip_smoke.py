@@ -81,11 +81,11 @@ time:
    32/8, MHA 16/16 and 32/32 and qwen3's group of 8, 32/4; totals per
    head dim), at phase 7d's jamba session shape (32/8, hd 128), at
    phase 7e's (qwen2-vl's 64/8 at hd 128, S = 1,280, and its B=1
-   admissions; seamless's non-causal encoder, 16/16 at hd 64, S =
-   1,024, and its decoder's S = 1 BOS prefill) and at
-   phase 6's f32 shapes (the reduced jamba's 4/4 at hd 64 among them),
-   against its plain version, with
-   device times,
+   admissions; seamless's non-causal encoder, 16/16 at hd 64, and its
+   decoder's S = 1 BOS prefill, at the session's S = 1,024 and at each
+   equal-length sub-batch of its mixed FIFO) and at phase 6's f32
+   shapes (the reduced jamba's 4/4 at hd 64 among them), against its
+   plain version, with device times,
    one ``scaled_dot_product_attention`` call as the library yardstick
    (and the kernel's ratio to it), host times per call of the wrapper
    and of SDPA, and the bound (bytes over 3.35 TB/s or the causal FLOPs
@@ -188,10 +188,10 @@ time:
    ``LM_TRAIN_REL_TOL``);
 8c. MoE and SSM training as 8b (C=4, B=16, S=128, 20 steps in windows
    of 10, both drivers, one step profiled): mamba2-370m at full width
-   and depth and deepseek-moe-16b at published widths cut to 2 layers
-   (its dense layer 0 on the client, one MoE layer on the server), each
-   state's reckoned size printed before it allocates, the router aux
-   loss beside the CE;
+   cut to 24 of 48 layers and deepseek-moe-16b at published widths cut
+   to 2 layers (its dense layer 0 on the client, one MoE layer on the
+   server), each state's reckoned size printed before it allocates, the
+   router aux loss beside the CE;
 8d. encoder-decoder training as 8b: seamless-m4t-large-v2 at published
    widths cut to 12 + 12 layers (~1.46 B elements, reckoned ~43.5 GiB;
    24 + 24 do not fit at C=4), source frames drawn as the reference's
@@ -2221,11 +2221,14 @@ def lm_trainer_phase(gen, cfg, phase_8b=True):
 
 
 # phase 8c: MoE and SSM training as phase 8b runs it (C=4, B=16, S=128,
-# 20 steps in windows of 10, both drivers): mamba2-370m at full width and
-# depth, deepseek-moe-16b at published widths cut to 2 layers (the dense
-# layer 0 on the client, one MoE layer of 64 routed and 2 shared experts
-# on the server); a run's state must reckon to at most TRAIN_FIT_GIB
-TRAIN_ARCHS = (("mamba2-370m", 0), ("deepseek-moe-16b", 2))
+# 20 steps in windows of 10, both drivers): mamba2-370m at full width cut
+# to 24 of its 48 layers (all 48 fit, ~23 GiB, but their host-bound steps
+# and profile took 63-125 s of this script's time limit beside an H100
+# 80GB HBM3 at 700 W), deepseek-moe-16b at published widths cut to 2
+# layers (the dense layer 0 on the client, one MoE layer of 64 routed and
+# 2 shared experts on the server); a run's state must reckon to at most
+# TRAIN_FIT_GIB
+TRAIN_ARCHS = (("mamba2-370m", 24), ("deepseek-moe-16b", 2))
 # bytes a trainable element holds at the peak (bf16 weight and grad, f32
 # moments, Adam's f32 staging), as phase 8b's qwen2 peak reads
 TRAIN_BYTES_PER_ELEMENT = 32
@@ -2377,6 +2380,24 @@ def attn_layers(cfg) -> int:
     return n + cfg.n_encoder_layers if cfg.is_encoder_decoder else n
 
 
+def jamba_reduced():
+    """Phase 6's jamba: its ``reduced()`` config in fp32."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(SSM_ARCHS[1]).reduced(),
+                               dtype="float32")
+
+
+def ssm_flash_cases():
+    """Phase 5's cases of jamba: its phase 7d session in bf16 and phase
+    6's reduced config in f32."""
+    import torch
+    jamba = SSM_ARCHS[1]
+    return flash_cases(ssm_cfg(jamba), ssm_runs(jamba), [], jamba + " ") + [
+        (jamba_reduced(), f"{jamba} reduced {name}", B, S, lens,
+         torch.float32, True) for name, B, S, lens in [two_device_shape()]]
+
+
 def ssm_cfg(arch):
     """Phase 7d's config of ``arch``: jamba cut to ``JAMBA_LAYERS``."""
     import dataclasses
@@ -2435,20 +2456,28 @@ def make_requests(spec, vocab_size, seed=1):
             for i, (c, n, new) in enumerate(spec)]
 
 
-def fifo_shapes(spec, label, **kw):
+def fifo_shapes(spec, label, split=False, **kw):
     """(label, B, S, kv_len) of each prefill ``ServeEngine(**kw)`` gives
     the flash kernel on the requests of ``spec``: each batch as the
     engine's own policy forms it, right-padded to its longest prompt
-    (kv_len the prompt lengths when ragged, else None)."""
+    (kv_len the prompt lengths when ragged, else None); with ``split``
+    (a stack ``slot_serving_ok`` refuses) a ragged batch's equal-length
+    sub-batches instead, in the order of their first request."""
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(None, None, device="cpu", **kw)
     for r in make_requests(spec, 2):
         eng.submit(r)
-    out = []
+    out, n = [], 0
     while eng.queue:
         lens = [len(r.prompt) for r in eng._next_batch()]
-        out.append((f"{label} batch {len(out)}", len(lens), max(lens),
-                    None if len(set(lens)) == 1 else lens))
+        if len(set(lens)) == 1:
+            out.append((f"{label} batch {n}", len(lens), lens[0], None))
+        elif split:
+            out += [(f"{label} batch {n} L={L}", lens.count(L), L, None)
+                    for L in dict.fromkeys(lens)]
+        else:
+            out.append((f"{label} batch {n}", len(lens), max(lens), lens))
+        n += 1
     return out
 
 
@@ -2465,15 +2494,15 @@ def admission_shapes(lens_and_caps, label):
     return list(out.values())
 
 
-def prefill_shapes(runs):
+def prefill_shapes(runs, split=False):
     """(label, B, S, kv_len) of every prefill phase 7's serving runs give
     the flash kernel: the session's equal-length batch, each FIFO engine
-    batch, and each distinct admission prefill of the continuous
-    runs."""
+    batch (``fifo_shapes``, ``split`` as there), and each distinct
+    admission prefill of the continuous runs."""
     s = runs["session"]
     out = [("session", s["batch"], s["prompt_len"], None)]
     for mode, kw in runs["engines"].items():
-        out += fifo_shapes(runs["requests"], mode, **kw)
+        out += fifo_shapes(runs["requests"], mode, split, **kw)
     return out + admission_shapes(
         [(L, run["cache_len"]) for run in runs["continuous"].values()
          for _, L, _ in run["requests"]], ADMISSION)
@@ -2530,14 +2559,29 @@ def split_p_check(label, got, want, control):
 
 
 def flash_cases(cfg, runs, f32_shapes, label=""):
-    """(cfg, label, B, S, kv_len, dtype) of phase 5 for one config: bf16
-    at every prefill shape ``runs`` give the kernel, f32 at
-    ``f32_shapes``; labels prefixed with ``label``."""
+    """(cfg, label, B, S, kv_len, dtype, causal) of phase 5 for one
+    config: bf16 at every prefill shape ``runs`` give the kernel (a
+    stack ``slot_serving_ok`` refuses prefills a ragged FIFO batch by
+    equal-length sub-batches), f32 at ``f32_shapes``; labels prefixed
+    with ``label``.  An encoder-decoder's prefill of (B, S) launches the
+    kernel twice a layer pair: its encoder's non-causal attention at
+    (B, S) and its decoder's causal one over the BOS token at (B, 1),
+    so each shape gives those two cases."""
     import torch
-    return [(cfg, label + sh[0]) + sh[1:] + (dt,)
-            for shapes, dt in ((prefill_shapes(runs), torch.bfloat16),
-                               (f32_shapes, torch.float32))
-            for sh in shapes]
+    from repro_torch.models.decode import slot_serving_ok
+    split = not slot_serving_ok(cfg)
+    out = []
+    for shapes, dt in ((prefill_shapes(runs, split), torch.bfloat16),
+                       (f32_shapes, torch.float32)):
+        for name, B, S, lens in shapes:
+            if cfg.is_encoder_decoder:
+                out += [(cfg, f"{label}encoder {name}", B, S, None, dt,
+                         False),
+                        (cfg, f"{label}decoder BOS {name}", B, 1, None, dt,
+                         True)]
+            else:
+                out.append((cfg, label + name, B, S, lens, dt, True))
+    return out
 
 
 def two_device_shape():
@@ -2546,10 +2590,9 @@ def two_device_shape():
 
 
 def check_flash(cases, gen):
-    """The kernel at every case of ``flash_cases`` (causal, kv_len where
-    ragged; a case may add ``causal=False`` as a seventh element: an
-    encoder's attention): phase 7's and 7b's serving prefill shapes in bf16 and
-    phase 6's f32 ones (its engines' and the card-vs-CPU prefills),
+    """The kernel at every case of ``flash_cases`` (kv_len where ragged;
+    non-causal for an encoder's attention): phase 7's and 7b's serving
+    prefill shapes in bf16 and phase 6's f32 ones (its engines' and the card-vs-CPU prefills),
     against its plain version; device times of the kernel, the plain
     version and one SDPA call (library yardstick only: the port never
     calls it); the bound from the bytes each call must move and the
@@ -2565,8 +2608,7 @@ def check_flash(cases, gen):
     from repro_torch.kernels import flash_attention as fa
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")
     totals, worst = {}, 0.0
-    for cfg, label, B, S, lens, dtype, *rest in cases:
-        causal = rest[0] if rest else True
+    for cfg, label, B, S, lens, dtype, causal in cases:
         Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         q, k, v = (torch.randn((B, S, h, hd), device="cuda", generator=gen)
                    .to(dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv))
@@ -3405,14 +3447,12 @@ def fifo_sub_batches(cfg, runs):
     chunks, the carry's blocks a layer)."""
     from repro_torch.models.ssm import CARRY_BLOCK, chunk_size
     out = []
-    for _, _, S, lens in fifo_shapes(runs["requests"], "mixed",
+    for _, rows, L, _ in fifo_shapes(runs["requests"], "mixed", True,
                                      **runs["engines"]["mixed"]):
-        for L in dict.fromkeys(lens or [S]):
-            rows = (lens or [S]).count(L)
-            chunk = chunk_size(cfg, L)
-            nc = L // chunk
-            out.append((rows, L, chunk, nc, -(-nc // CARRY_BLOCK)
-                        if nc > 1 else 0))
+        chunk = chunk_size(cfg, L)
+        nc = L // chunk
+        out.append((rows, L, chunk, nc, -(-nc // CARRY_BLOCK)
+                    if nc > 1 else 0))
     return out
 
 
@@ -3480,23 +3520,26 @@ def mm_flash_cases():
     qwen2-vl's session and vision prefill (one shape: B=8, S=1,280, GQA
     64/8 at hd 128, causal) and its continuous admissions in bf16, and
     its 2-layer f32 shape; seamless's encoder (16/16 at hd 64,
-    non-causal, B=8, S=1,024) and decoder BOS prefill (S=1) in bf16,
-    and both at phase 6's f32 shapes."""
-    import torch
-    cases = flash_cases(vlm_cfg(), vlm_runs(), [two_device_shape()],
-                        VLM_ARCH + " ")
+    non-causal) and decoder BOS prefill (S=1) at its session's shape
+    (B=8, S=1,024) and at each equal-length sub-batch of its mixed FIFO
+    in bf16, and both at phase 6's f32 shape."""
     from repro_torch.configs.base import get_config
-    cfg = get_config(ENCDEC_ARCH)
-    B, S = encdec_runs()["session"]["batch"], 1024
-    two = LM_TWO_DEVICE
-    for dt, b, s, tag in ((torch.bfloat16, B, S, "session"),
-                          (torch.float32, two["batch"], two["prompt_len"],
-                           "card-vs-CPU")):
-        cases += [(cfg, f"{ENCDEC_ARCH} encoder {tag}", b, s, None, dt,
-                   False),
-                  (cfg, f"{ENCDEC_ARCH} decoder BOS {tag}", b, 1, None, dt,
-                   True)]
-    return cases
+    return (flash_cases(vlm_cfg(), vlm_runs(), [two_device_shape()],
+                        VLM_ARCH + " ")
+            + flash_cases(get_config(ENCDEC_ARCH), encdec_runs(),
+                          [two_device_shape()], ENCDEC_ARCH + " "))
+
+
+def mm_on_two_devices():
+    """Phase 6's multimodal part: qwen2-vl-72b at 2 layers and
+    seamless-m4t-large-v2 at 2 + 2, card against CPU in strict fp32."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    two = LM_TWO_DEVICE["n_layers"]
+    lm_on_two_devices(VLM_ARCH)
+    lm_on_two_devices(ENCDEC_ARCH, dataclasses.replace(
+        get_config(ENCDEC_ARCH), n_layers=two, n_encoder_layers=two,
+        dtype="float32"))
 
 
 def vision_prefill(cfg, params, s, device="cuda"):
@@ -3732,15 +3775,12 @@ def main() -> int:
     phase_done("4b")
 
     # phase 5 ---------------------------------------------------------
-    import dataclasses
     lm = get_config(SERVE_ARCH)
     serving = serving_runs()
     dense = {arch: (get_config(arch), arch_runs(arch))
              for arch in DENSE_ARCHS}
     moe = {arch: (get_config(arch), arch_runs(arch)) for arch in MOE_ARCHS}
-    jamba = "jamba-v0.1-52b"
-    jamba_reduced = dataclasses.replace(get_config(jamba).reduced(),
-                                        dtype="float32")
+    jamba = SSM_ARCHS[1]
     print(f"phase 5: flash attention against its plain version, at "
           f"phase 7's prefill shapes ({SERVE_ARCH}, hd 64; the continuous "
           f"runs' B=1 admissions too), phase 7b's ({', '.join(DENSE_ARCHS)};"
@@ -3752,10 +3792,7 @@ def main() -> int:
     for arch, (cfg_d, runs_d) in {**dense, **moe}.items():
         cases += flash_cases(cfg_d, runs_d, [two_device_shape()]
                              if arch in TWO_DEVICE_ARCHS else [], arch + " ")
-    cases += flash_cases(ssm_cfg(jamba), ssm_runs(jamba), [], jamba + " ")
-    cases += [(jamba_reduced, f"{jamba} reduced {sh[0]}") + sh[1:]
-              + (torch.float32,) for sh in [two_device_shape()]]
-    cases += mm_flash_cases()
+    cases += ssm_flash_cases() + mm_flash_cases()
     flash = check_flash(cases, gen)
     phase_done(5)
 
@@ -3770,12 +3807,8 @@ def main() -> int:
           f"({SERVE_ARCH})")
     for arch in TWO_DEVICE_ARCHS:
         lm_on_two_devices(arch)
-    lm_on_two_devices(jamba, jamba_reduced)
-    two = LM_TWO_DEVICE["n_layers"]
-    lm_on_two_devices(VLM_ARCH)
-    lm_on_two_devices(ENCDEC_ARCH, dataclasses.replace(
-        get_config(ENCDEC_ARCH), n_layers=two, n_encoder_layers=two,
-        dtype="float32"))
+    lm_on_two_devices(jamba, jamba_reduced())
+    mm_on_two_devices()
     for arch in ("deepseek-moe-16b", "mamba2-370m"):
         train_step_on_two_devices(arch)
     engines_agree_fp32()
@@ -3852,7 +3885,7 @@ def main() -> int:
 
     # phase 8c --------------------------------------------------------
     print("phase 8c: MoE and SSM training as phase 8b: mamba2-370m at full "
-          "width and depth, deepseek-moe-16b at published widths, 2 layers")
+          "width, 24 layers, deepseek-moe-16b at published widths, 2 layers")
     lm_launches = moe_ssm_trainer_phase(gen)
     for k in ("ntxent_stats", "ntxent_backward", "client_adam"):
         launches[k] += lm_launches[k]

@@ -54,18 +54,17 @@ def attention_init(gen, cfg, lead=(), cast=None):
     return p
 
 
-def _project_qkv(p, x, cfg, dtype):
+def _project(p, x, cfg, dtype, which="qkv"):
+    """The projections of x (B, S, D) that ``which`` names, of "q", "k"
+    and "v" in that order: a list of (B, S, H, hd), H the heads of each."""
     B, S, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ p["wq"].to(dtype)
-    k = x @ p["wk"].to(dtype)
-    v = x @ p["wv"].to(dtype)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(dtype)
-        k = k + p["bk"].to(dtype)
-        v = v + p["bv"].to(dtype)
-    return (q.reshape(B, S, hq, hd), k.reshape(B, S, hkv, hd),
-            v.reshape(B, S, hkv, hd))
+    out = []
+    for n in which:
+        y = x @ p["w" + n].to(dtype)
+        if cfg.qkv_bias:
+            y = y + p["b" + n].to(dtype)
+        out.append(y.reshape(B, S, -1, cfg.head_dim))
+    return out
 
 
 def _rope_qk(q, k, cfg, positions):
@@ -81,15 +80,6 @@ def _rope_qk(q, k, cfg, positions):
         return (apply_rope(q, positions, cfg.rope_theta),
                 apply_rope(k, positions, cfg.rope_theta))
     return q, k
-
-
-def _project_q(p, x, cfg, dtype):
-    """The query projection alone (a cross-attention's), (B, S, Hq, hd)."""
-    B, S, _ = x.shape
-    q = x @ p["wq"].to(dtype)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(dtype)
-    return q.reshape(B, S, cfg.n_heads, cfg.head_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -177,17 +167,21 @@ def mha_chunked(q, k, v, *, causal: bool, window: int = 0,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def _chunk(n: int) -> int:
+    """The reference's block of ``min(1024, n)`` where that divides n, else
+    the largest block of at most 1024 that does (where the reference's
+    chunk assertion fails)."""
+    return n if n <= 1024 else math.gcd(n, 1024)
+
+
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0):
     """The reference's long-sequence attention on (B, S, H, hd) q, k, v:
     the inputs rounded to bf16, the output cast back to q's dtype.  On
-    CPU tensors ``mha_chunked`` in blocks of gcd(S, 1024): the
-    reference's 1024 where that divides S (elsewhere the reference's
-    own chunk assertion fails; the port takes the largest block of at
-    most 1024 that divides S).  On CUDA tensors the bf16 flash kernel
-    on the rounded inputs (its P kept to ~16 bits, where
-    ``mha_chunked`` rounds P to 8)."""
+    CPU tensors ``mha_chunked`` in blocks of ``_chunk(S)``.  On CUDA
+    tensors the bf16 flash kernel on the rounded inputs (its P kept to
+    ~16 bits, where ``mha_chunked`` rounds P to 8)."""
     if q.device.type == "cpu":
-        chunk = math.gcd(q.shape[1], 1024)
+        chunk = _chunk(q.shape[1])
         return mha_chunked(q, k, v, causal=causal, window=window,
                            q_chunk=chunk, kv_chunk=chunk)
     bf16 = torch.bfloat16
@@ -203,14 +197,16 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def _head_gate(out, gate, dtype):
-    """AdaSplit per-head server mask, applied PRE-wo on (B, S, H, hd):
-    gate (H,) for one client or (B, H) per example."""
-    if gate is None:
-        return out
-    g = gate.to(dtype)
-    g = g[None, None, :, None] if g.ndim == 1 else g[:, None, :, None]
-    return out * g
+def _project_out(p, out, gate, dtype):
+    """The wo projection of (B, S, H, hd) head outputs, each head first
+    gated by the AdaSplit per-head server mask: gate (H,) for one client
+    or (B, H) per example."""
+    B, S = out.shape[:2]
+    if gate is not None:
+        g = gate.to(dtype)
+        out = out * (g[None, None, :, None] if g.ndim == 1
+                     else g[:, None, :, None])
+    return out.reshape(B, S, -1) @ p["wo"].to(dtype)
 
 
 def training_attention(q, k, v, *, causal: bool, window: int = 0,
@@ -218,11 +214,11 @@ def training_attention(q, k, v, *, causal: bool, window: int = 0,
     """The reference's training attention on (B, S, H, hd) q, k, v, in
     torch ops that autograd differentiates: ``mha_chunked`` above
     S = 2048 with S % 256 == 0 and no key mask, in blocks of
-    gcd(S, 1024) (``chunked_attention``'s CPU rule), else
+    ``_chunk(S)`` (``chunked_attention``'s CPU rule), else
     ``mha_einsum`` (with ``kv_len`` as its prefix key mask)."""
     S = q.shape[1]
     if S > 2048 and S % 256 == 0 and kv_len is None:
-        chunk = math.gcd(S, 1024)
+        chunk = _chunk(S)
         return mha_chunked(q, k, v, causal=causal, window=window,
                            q_chunk=chunk, kv_chunk=chunk)
     kv_valid = None
@@ -231,13 +227,6 @@ def training_attention(q, k, v, *, causal: bool, window: int = 0,
                     < kv_len.to(q.device)[:, None])
     return mha_einsum(q, k, v, causal=causal, window=window,
                       kv_valid=kv_valid)
-
-
-def _chunk(n: int) -> int:
-    """The reference's block of ``min(1024, n)`` where that divides n, else
-    the largest block of at most 1024 that does (where the reference's
-    chunk assertion fails)."""
-    return n if n <= 1024 else math.gcd(n, 1024)
 
 
 def cross_attention(q, k, v):
@@ -272,24 +261,20 @@ def attn_forward(p, x, cfg, *, positions, causal=True, window=0,
     cross-attention, its queries without RoPE, non-causal, unwindowed,
     through ``cross_attention`` (never the flash kernel).
     Returns (out, (k, v)) so prefill can stash the cache."""
-    dtype = x.dtype
-    B, S, _ = x.shape
     if kv_override is not None:
         k, v = kv_override
-        out = cross_attention(_project_q(p, x, cfg, dtype), k, v)
+        out = cross_attention(_project(p, x, cfg, x.dtype, "q")[0], k, v)
     else:
         out, (k, v) = _self_attention(p, x, cfg, positions, causal, window,
                                       kv_len, training)
-    out = _head_gate(out, head_gate, dtype)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"].to(dtype), (k, v)
+    return _project_out(p, out, head_gate, x.dtype), (k, v)
 
 
 def _self_attention(p, x, cfg, positions, causal, window, kv_len, training):
     """``attn_forward``'s self-attention before the head gate: returns
     (out (B, S, Hq, hd), (k, v))."""
     S = x.shape[1]
-    q, k, v = _project_qkv(p, x, cfg, x.dtype)
+    q, k, v = _project(p, x, cfg, x.dtype)
     q, k = _rope_qk(q, k, cfg, positions)
     if training:
         out = training_attention(q, k, v, causal=causal, window=window,
@@ -324,17 +309,15 @@ def attn_decode(p, x, cache, pos, cfg, *, window=0, head_gate=None,
     double the cache traffic); returns (out, cache).
 
     kv_override: a cross-attention's (k, v) over the encoder states
-    (the cache's ``cross_k``/``cross_v``): the query attends all of
-    them, no cache is written and ``cache`` comes back as given."""
+    (the cache's ``cross_k``/``cross_v``): ``attn_forward``'s cross
+    branch, the query attending all of them; no cache is written and
+    ``cache`` comes back as given."""
     dtype = x.dtype
     B = x.shape[0]
-    hq, hd = cfg.n_heads, cfg.head_dim
     if kv_override is not None:
-        out = mha_einsum(_project_q(p, x, cfg, dtype), *kv_override,
-                         causal=False)
-        out = _head_gate(out, head_gate, dtype).reshape(B, 1, hq * hd)
-        return out @ p["wo"].to(dtype), cache
-    q, k, v = _project_qkv(p, x, cfg, dtype)
+        return attn_forward(p, x, cfg, positions=None, head_gate=head_gate,
+                            kv_override=kv_override)[0], cache
+    q, k, v = _project(p, x, cfg, dtype)
     per_slot = torch.is_tensor(pos) and pos.ndim == 1
     if per_slot:
         posv = pos.to(device=x.device, dtype=torch.long)
@@ -364,19 +347,10 @@ def attn_decode(p, x, cache, pos, cfg, *, window=0, head_gate=None,
         n_valid = min(pos + 1, L) if window else pos + 1
         kv_valid = (idx < n_valid)[None, :].expand(B, L)
     out = mha_einsum(q, k_all, v_all, causal=False, kv_valid=kv_valid)
-    out = _head_gate(out, head_gate, dtype)
-    out = out.reshape(B, 1, hq * hd)
-    return out @ p["wo"].to(dtype), cache
+    return _project_out(p, out, head_gate, dtype), cache
 
 
 def cross_kv(p, enc_out, cfg, dtype):
     """Project encoder states (B, S, D) once into a cross-attention's K/V,
     (B, S, Hkv, hd) each."""
-    B, S, _ = enc_out.shape
-    hkv, hd = cfg.n_kv_heads, cfg.head_dim
-    k = enc_out @ p["wk"].to(dtype)
-    v = enc_out @ p["wv"].to(dtype)
-    if cfg.qkv_bias:
-        k = k + p["bk"].to(dtype)
-        v = v + p["bv"].to(dtype)
-    return k.reshape(B, S, hkv, hd), v.reshape(B, S, hkv, hd)
+    return tuple(_project(p, enc_out, cfg, dtype, "kv"))

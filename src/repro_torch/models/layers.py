@@ -75,7 +75,12 @@ def apply_rope(x, positions, theta: float):
     split-halves form: (x1, x2) -> (x1 cos - x2 sin, x1 sin + x2 cos)."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)
-    ang = positions[..., None].to(torch.float32) * freqs   # (..., S, hd/2)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def _rotate(x, ang):
+    """Rotate x (..., S, H, hd) by the angles ang (..., S, hd/2), shared
+    by every head."""
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -98,11 +103,7 @@ def apply_mrope(x, positions3, theta: float, sections):
     p = positions3.to(torch.float32)
     pos = torch.cat([p[..., i:i + 1].expand(p.shape[:-1] + (n,))
                      for i, n in enumerate(sections)], dim=-1)
-    ang = pos * freqs                                     # (..., S, half)
-    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return _rotate(x, pos * freqs)
 
 
 # ---------------------------------------------------------------------------

@@ -60,6 +60,11 @@ ARCH = "seamless-m4t-large-v2"
 B, S, SK = 2, 10, 12            # decoder prompt length, source frames
 N_CLIENTS = 3
 TOL = 2e-5
+# the chunked cross-attention, both sides rounding q, k, v and P to bf16:
+# they differ only where a P falls on either side of a bf16 rounding
+# step (seen up to 5.8e-4 of the output's largest magnitude), while the
+# unrounded f32 einsum lies 2.8e-3 to 3.3e-3 away (seeds 2-4)
+CHUNKED_TOL = 1e-3
 COUNTERS = ("requests", "tokens", "completed", "batches", "decode_steps",
             "slot_steps", "slot_capacity", "mixed_batches", "fold_hits",
             "fold_misses", "gate_hits", "gate_misses")
@@ -172,7 +177,8 @@ def test_params_masks_and_caches_match_reference(model):
 def test_cross_attention_prefill(model, sq):
     """``cross_kv`` and ``attn_forward`` with ``kv_override`` (Sq != Sk):
     ``mha_einsum``, and above Sq = 2048 the reference's ``mha_chunked``
-    (bf16 rounding; held to 1e-2 there); never the flash kernel."""
+    (bf16 rounding; held to ``CHUNKED_TOL`` there, which the f32 einsum
+    misses); never the flash kernel."""
     jcfg, tcfg, jp, tp = model[:4]
     jl = jax.tree.map(lambda a: a[0], jp["server"]["segments"][0][0]["cross"])
     tl = {k: v[0] for k, v in tp["server"]["segments"][0][0]["cross"].items()}
@@ -195,7 +201,15 @@ def test_cross_attention_prefill(model, sq):
     finally:
         tattn.flash_attention = flash
     if sq > 2048:
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-2)
+        want = np.asarray(want)
+        q = tattn._project(tl, torch.from_numpy(x), tcfg, torch.float32,
+                           "q")[0]
+        einsum = tattn._project_out(
+            tl, tattn.mha_einsum(q, gk, gv, causal=False), None,
+            torch.float32)
+        err, einsum_err = (np.abs(o.numpy() - want).max()
+                           / np.abs(want).max() for o in (got, einsum))
+        assert err <= CHUNKED_TOL < einsum_err, (err, einsum_err)
     else:
         _close(got, want, "cross out")
 
