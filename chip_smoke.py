@@ -72,6 +72,21 @@ time:
    which must be as derived from its hparams; the streamed run must hold
    at least C x a client's store row less and peak lower, select and
    bill alike and end within phase 4's streamed state bound;
+4c. cohort-sharded training (``shard_clients=True``): the main run's
+   hparams on 2 ranks over gloo on the one card (``launch.distributed.
+   run_ranks``: spawned ranks that load the kernels phase 1 built, a
+   ``file://`` rendezvous, the job under ``SHARD_TIMEOUT_S``; a failing
+   rank fails the phase), 16 clients a rank, on the round rung and the
+   epoch rung (``epoch_chunk_rounds`` 0 and 1): each must select, bill
+   and train as phase 4's ``main`` (selections and the protocol meters
+   equal, CE within 1e-5, state within 1e-4 or phase 4's chunked
+   bound), bill interconnect by the reference's formula, equal to the
+   bytes the exchange moved, end with every rank's state (the server
+   included) bit-equal, and launch as derived from its hparams; each
+   rank's global-iteration wall ms over 5 more global rounds, host
+   round trips a round (all-gathers and fetches, counted), interconnect
+   GB, launches, and one global round profiled (busy share).  Phase 2
+   checks the kernels at a rank's 16-row client-step shapes;
 5. the flash-attention kernel at every prefill shape of phase 7's
    serving runs (derived from ``serving_runs()`` through the engines'
    own batching and bucketing; bf16, causal, kv_len where ragged; each
@@ -183,8 +198,8 @@ time:
    its wall ms per step, tokens/s and peak device memory, one steady
    global window profiled (busy share); equal selections and losses
    within ``LM_DRIVER_TOL`` across the drivers; a ``requires_grad`` q
-   refused by the flash wrapper; then 2 layers, strict fp32, 4 steps on
-   the card and the CPU (equal selections, losses within
+   refused by the flash wrapper; then 2 layers, strict fp32, 2 steps (a
+   local and a global one) on the card and the CPU (equal selections, losses within
    ``LM_TRAIN_REL_TOL``);
 8c. MoE and SSM training as 8b (C=4, B=16, S=128, 20 steps in windows
    of 10, both drivers, one step profiled): mamba2-370m at full width
@@ -199,7 +214,8 @@ time:
 9. a ``kernels`` JSON line (all eight kernels; flash's launches those of
    every phase 7, 7b, 7c, 7d and 7e run, its times the hd-64 session and
    FIFO totals; NT-Xent's and client Adam's launches include phases
-   8b's, 8c's and 8d's),
+   8b's, 8c's and 8d's; the panel GEMM's, masked Adam's, client Adam's
+   and NT-Xent's both ranks' training in phase 4c),
    then the final ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the repository around it, and imports nothing
@@ -964,6 +980,242 @@ def check_slice_kernels(cfg, runs, gen, checked):
                  kw, True, f"client_adam [stream] {rows} rows of a chunk")
 
 
+# ---------------------------------------------------------------------------
+# phase 4c: cohort-sharded AdaSplit, SHARD_WORLD ranks on the one card
+# ---------------------------------------------------------------------------
+
+# ranks on the one card (gloo: NCCL refuses two ranks on one device)
+SHARD_WORLD = 2
+# the whole job's limit; a rank that fails or stalls fails the phase
+SHARD_TIMEOUT_S = 300.0
+# global rounds timed after training, taken in turn on every rank
+SHARD_TIMED_ROUNDS = 5
+
+
+def shard_runs():
+    """Phase 4c's runs: the main run's hparams with ``shard_clients`` on
+    the round rung and on the epoch rung, the whole epoch at once
+    (``epoch_chunk_rounds`` 0) and a round per chunk (1)."""
+    import dataclasses
+    main = trainer_runs()["main"]
+    sharded = dataclasses.replace(main, shard_clients=True)
+    return {"shard_round": sharded,
+            "shard_epoch0": dataclasses.replace(sharded, epoch_scan=True,
+                                                epoch_chunk_rounds=0),
+            "shard_epoch1": dataclasses.replace(sharded, epoch_scan=True,
+                                                epoch_chunk_rounds=1)}
+
+
+def check_shard_shapes(cfg, gen, checked):
+    """The kernels at the shapes a rank of phase 4c gives them beyond
+    phase 4's: its client step over C/SHARD_WORLD rows (the client
+    blocks' GEMMs, NT-Xent, client Adam); its global step is the main
+    run's, over the S selected of all C clients."""
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+    hp = shard_runs()["shard_round"]
+    rows = N_CLIENTS // SHARD_WORLD
+    new = []
+    for name, _, m, k, n, launches in gemm_shapes(cfg, hp):
+        key = (hp.fused_epilogue, rows, m, k, n)
+        if name.startswith("client_block") and key not in checked:
+            checked.add(key)
+            new.append((name, rows, m, k, n, launches))
+    if new:
+        check_gemm(cfg, hp, gen, shapes=new, run=f"shard {rows} rows")
+    check_ntxent(cfg, hp, gen, C=rows)
+    adam_row([adam_inputs(client_adam_leaves(cfg, hp, rows=rows), True,
+                          gen)], kw, True,
+             f"client_adam [shard] {rows} rows of a rank")
+
+
+def shard_rank(runs):
+    """One rank of phase 4c (in a spawned process, the kernels loaded
+    from ``build/``, which phase 1 built): each run trained as phase 4
+    trains its own, its launches read; then SHARD_TIMED_ROUNDS more
+    global rounds timed, their collectives and fetches counted, and one
+    profiled.  Returns what the parent checks and prints."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.adasplit import AdaSplitTrainer
+    from repro_torch.data.synthetic import mixed_noniid
+    from repro_torch.weights import strict_fp32
+    strict_fp32()
+    cfg = get_config("lenet-cifar")
+    clients = mixed_noniid(N_CLIENTS, n_per_client=128, n_test=64)
+    out = {}
+    for label, hp in runs.items():
+        tr = AdaSplitTrainer(cfg, hp, clients, device="cuda")
+        assert tr._shard, f"[{label}] sharding did not engage"
+        selections = log_selections(tr.orch)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        hist = tr.train(eval_every=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        res = {"state": tr.get_state(), "meter": dataclasses.replace(
+                   tr.meter), "selections": list(selections),
+               "L": tr.orch.L.copy(), "history": hist, "wall_s": wall,
+               "launches": launches, "accuracy": tr.evaluate(),
+               "iteration_bytes": tr._iteration_interconnect_bytes(),
+               "moved": dict(tr._xchg.bytes),
+               "collectives": dict(tr._xchg.collectives)}
+        # more global rounds of fixed batches, this rank's rows
+        T = len(clients[0].x) // hp.batch_size
+        mine = clients[tr._lo:tr._lo + tr._n_local]
+        run = one_round(tr, fixed_iters(mine, hp.batch_size, T))
+        fetch, fetches = tr._fetch, [0]
+
+        def counted(tensors):
+            fetches[0] += 1
+            return fetch(tensors)
+        tr._fetch = counted
+        tr._xchg.reset()
+        reset_launches()
+        ms = []
+        for _ in range(SHARD_TIMED_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / T)
+        res["round_launches"] = read_launches()
+        res["round_ms"] = ms
+        res["round_collectives"] = dict(tr._xchg.collectives)
+        res["round_fetches"] = fetches[0]
+        res["T"] = T
+        # one global round profiled on every rank at once (one session,
+        # no retake: the ranks' collectives must stay in step)
+        n_markers = PROFILE_MARKERS[1]
+        with primed_profile(n_markers) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev, markers = device_records(prof)
+        busy = sum(d[1] for d in dev)
+        res["profile"] = {"markers": markers, "n_markers": n_markers,
+                          "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+                          "ops": sum(d[2] for d in dev),
+                          "top": sorted(dev, key=lambda d: -d[1])[:8]}
+        del tr._fetch
+        out[label] = res
+    return out
+
+
+def shard_phase(cfg, main):
+    """Phase 4c: ``shard_runs()`` on SHARD_WORLD ranks over gloo on the
+    one card (``launch.distributed.run_ranks``: spawned ranks, a
+    ``file://`` rendezvous, the job bounded by SHARD_TIMEOUT_S; a failing
+    rank fails the phase).  Each run against phase 4's unsharded ``main``
+    snapshot: equal selections, ``_n_selects`` and protocol meters
+    (bandwidth, client and server FLOPs, host<->device bytes); the
+    interconnect bill > 0, equal to the reference's formula for the run's
+    global iterations and to the bytes the exchange moved; CE history
+    and ``orch.L`` within 1e-5; state within 1e-4, or within phase 4's
+    bound for client steps over other row counts (``chunked_state_close``:
+    a rank's client step runs C/world rows); every rank's state, server
+    included, bit-equal to rank 0's.  Prints each run's global-iteration
+    wall ms, busy share, host round trips a global round, interconnect
+    GB and launches per rank; returns the launches of the ranks'
+    training, summed."""
+    import numpy as np
+    from repro_torch.launch.distributed import run_ranks
+    from repro_torch.weights import tree_leaves
+    runs = shard_runs()
+    t0 = time.perf_counter()
+    ranks = run_ranks(shard_rank, SHARD_WORLD, backend="gloo", args=(runs,),
+                      timeout=SHARD_TIMEOUT_S)
+    print(f"  {SHARD_WORLD} ranks over gloo on one card, job wall "
+          f"{time.perf_counter() - t0:.2f} s (spawn and CUDA init included)")
+    total = {}
+    for label, hp in runs.items():
+        res = ranks[0][label]
+        T = res["T"]
+        n_global = (hp.rounds - int(round(hp.kappa * hp.rounds))) * T
+        same_sel = len(res["selections"]) == len(main["selections"]) and \
+            all(np.array_equal(a, b) for a, b in zip(res["selections"],
+                                                     main["selections"]))
+        meter = {f: (getattr(res["meter"], f), getattr(main["meter"], f))
+                 for f in ("bandwidth_bytes", "client_flops", "server_flops",
+                           "host_device_bytes")}
+        same_meter = all(a == b for a, b in meter.values())
+        ic = res["meter"].interconnect_bytes
+        bill_ok = ic > 0 and ic == res["iteration_bytes"] * n_global \
+            == res["moved"].get("iteration")
+        ce_ok = np.allclose(res["L"], main["L"], rtol=1e-5, atol=1e-5) and \
+            all(a["ce"] is None and b["ce"] is None
+                or abs(a["ce"] - b["ce"]) <= 1e-5 + 1e-5 * abs(b["ce"])
+                for a, b in zip(res["history"], main["history"]))
+        worst, flips, total_el = state_diff(res["state"], main["state"])
+        close, what = chunked_state_close(worst, flips, total_el, hp.lr,
+                                          hp.rounds * T)
+        close = close or worst <= 1e-4
+        ranks_equal = all(
+            np.array_equal(a, b) for r in ranks[1:]
+            for a, b in zip(tree_leaves(r[label]["state"]),
+                            tree_leaves(res["state"])))
+        n_local = int(round(hp.kappa * hp.rounds))
+        local = iteration_launches(cfg, hp, global_phase=False)
+        glob = iteration_launches(cfg, hp)
+        want = {k: T * (n_local * local[k] + (hp.rounds - n_local) * glob[k])
+                for k in ("masked_adam", "client_adam", "ntxent_stats",
+                          "ntxent_backward")}
+        want_round = {k: SHARD_TIMED_ROUNDS * T * v for k, v in glob.items()}
+        for r, rr in enumerate(ranks):
+            got, got_round = rr[label]["launches"], rr[label]["round_launches"]
+            if any(got[k] != v for k, v in want.items()) or any(
+                    got_round[k] != v for k, v in want_round.items()):
+                raise AssertionError(
+                    f"[{label}] rank {r} launched {got} in training and "
+                    f"{got_round} in {SHARD_TIMED_ROUNDS} global rounds; "
+                    f"derived from the hparams: {want}, {want_round}")
+        print(f"  [{label}] rung={rung(hp)} vs main (round rung, "
+              f"unsharded): {len(res['selections'])} selections equal="
+              f"{same_sel} meters equal={same_meter} interconnect {ic} B = "
+              f"{n_global} global iterations x {res['iteration_bytes']} B "
+              f"(the formula; moved {res['moved'].get('iteration')} B) "
+              f"ce within 1e-5={ce_ok} {what}; every rank's state (server "
+              f"included) bit-equal to rank 0's={ranks_equal}")
+        if not (same_sel and same_meter and bill_ok and ce_ok and close
+                and ranks_equal):
+            raise AssertionError(f"[{label}] sharded run parts from main: "
+                                 f"meters {meter}, interconnect {ic}")
+        for r, rr in enumerate(ranks):
+            x = rr[label]
+            per_round = x["round_collectives"]
+            syncs = (sum(per_round.values()) + x["round_fetches"]) \
+                / SHARD_TIMED_ROUNDS
+            prof = x["profile"]
+            share = (f"{prof['busy_ms'] / prof['wall_ms']:.4f}"
+                     if prof["markers"] else "not measured (no marker "
+                     "recorded)")
+            print(f"  [{label}] rank {r}: training {x['wall_s']:.3f} s, "
+                  f"accuracy {x['accuracy']}; global iteration wall ms "
+                  f"(host clock, synced, {SHARD_TIMED_ROUNDS} rounds of "
+                  f"{T}): median {float(np.median(x['round_ms']))} (min "
+                  f"{min(x['round_ms'])}, max {max(x['round_ms'])}); host "
+                  f"round trips a global round {syncs} (all-gathers "
+                  f"{json.dumps(per_round)} / {SHARD_TIMED_ROUNDS} + "
+                  f"fetches {x['round_fetches']} / {SHARD_TIMED_ROUNDS}); "
+                  f"interconnect {x['meter'].interconnect_gb} GB in "
+                  f"training; launches in training {json.dumps(x['launches'])}"
+                  f", a global round {json.dumps(x['round_launches'])}")
+            print(f"  [{label}] rank {r} profile of one global round: wall "
+                  f"{prof['wall_ms']:.3f} ms, device busy "
+                  f"{prof['busy_ms']:.3f} ms, busy share {share}, "
+                  f"{prof['ops']} device ops ({prof['n_markers'] - prof['markers']}"
+                  f" of {prof['n_markers']} markers lost; {SMI})")
+            for key, us, count in prof["top"]:
+                print(f"    {us / 1e3:9.4f} ms {count:5d} calls  {key[:90]}")
+            for k, v in x["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
 def population_runs():
     """Phase 4b's runs: the main run's hparams on POPULATION's clients for
     one local and one global round, resident on the round rung and
@@ -1279,7 +1531,8 @@ def run_trainer(cfg, hp, clients, label):
     wall = time.perf_counter() - t0
     launches = read_launches()
     snap = {"state": tr.get_state(), "meter": dataclasses.replace(tr.meter),
-            "selections": list(selections)}
+            "selections": list(selections), "L": tr.orch.L.copy(),
+            "history": [dict(h) for h in hist]}
     T = len(clients[0].x) // hp.batch_size
     for rec in hist:
         print(f"  [{label}] " + json.dumps(rec))
@@ -1941,10 +2194,11 @@ LM_TRAIN = {"cohorts": 4, "batch": 16, "seq": 128, "steps": 20,
 # backward's accumulation order may differ run to run on the card)
 LM_DRIVER_TOL = 1e-2
 # card vs CPU: the same configuration at full width cut to 2 layers,
-# strict fp32, 4 steps (2 global): f32 sums in other orders, and Adam's
-# first steps move weights whose gradient is near eps by up to 2 lr on
-# one side only
-LM_TRAIN_TWO = {"n_layers": 2, "steps": 4}
+# strict fp32, 2 steps (a local and a global one; 4 until phase 4c came:
+# their CPU half took 64 s of the script's time limit); f32 sums in
+# other orders, and Adam's first steps move weights whose gradient is
+# near eps by up to 2 lr on one side only
+LM_TRAIN_TWO = {"n_layers": 2, "steps": 2}
 LM_PROFILED_WINDOW = 2
 LM_TRAIN_REL_TOL = 1e-3
 
@@ -2112,7 +2366,8 @@ def check_lm_run(label, tr, counts, fetches, wall, peak):
 
 def lm_train_on_two_devices(cfg_full):
     """The phase's configuration at full width cut to 2 layers, strict
-    fp32, 4 steps (2 global) on the card and on the CPU from the card's
+    fp32, LM_TRAIN_TWO's steps (half global) on the card and on the CPU
+    from the card's
     initial state, with the same jitter: equal selections, l_client and
     CE within LM_TRAIN_REL_TOL."""
     import dataclasses
@@ -3734,6 +3989,7 @@ def main() -> int:
                for shape in gemm_shapes(cfg, hp)}
     check_slice_kernels(cfg, runs, gen, checked)
     check_more_shapes(cfg, runs, gen, checked)
+    check_shard_shapes(cfg, gen, checked)
     phase_done(2)
 
     # phase 3 ---------------------------------------------------------
@@ -3763,6 +4019,7 @@ def main() -> int:
                 "ntxent_stats": counts["main"]["ntxent_stats"],
                 "ntxent_backward": counts["main"]["ntxent_backward"],
                 "soft_threshold": api["soft_threshold"]}
+    main_snapshot = results["main"][2]
     del results
     shutil.rmtree(STORE_DIR, ignore_errors=True)
     phase_done(4)
@@ -3773,6 +4030,17 @@ def main() -> int:
     population(cfg)
     torch.cuda.empty_cache()
     phase_done("4b")
+
+    # phase 4c --------------------------------------------------------
+    print(f"phase 4c: cohort-sharded AdaSplitTrainer on lenet-cifar, "
+          f"C={N_CLIENTS} over {SHARD_WORLD} ranks (gloo) on the one card, "
+          "round and epoch rungs, against phase 4's main run")
+    sharded = shard_phase(cfg, main_snapshot)
+    for k in ("panel_gemm", "masked_adam", "client_adam", "ntxent_stats",
+              "ntxent_backward"):
+        launches[k] += sharded[k]
+    del main_snapshot
+    phase_done("4c")
 
     # phase 5 ---------------------------------------------------------
     lm = get_config(SERVE_ARCH)

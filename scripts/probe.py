@@ -24,6 +24,9 @@ PARTs:
 - ``mm-two``: phase 6's qwen2-vl-72b and seamless-m4t-large-v2 at 2
   layers (2 + 2), card against CPU.
 - ``vlm``, ``encdec``: phase 7e's two halves; ``mm-train``: phase 8d.
+- ``shard``: phase 2's checks at a sharded rank's shapes, phase 4's
+  ``main`` run (the reference of phase 4c), then phase 4c (the
+  cohort-sharded trainer on 2 ranks over gloo on the one card).
 
 Groups: ``ssm`` (the four ``ssm-`` parts), ``mm`` (``mm-flash``,
 ``mm-two``, ``vlm``, ``encdec``, ``mm-train``).
@@ -79,7 +82,20 @@ def ssm_two(cs, gen):
         cs.train_step_on_two_devices(arch)
 
 
+def shard(cs, gen):
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import mixed_noniid
+    cfg = get_config("lenet-cifar")
+    cs.check_shard_shapes(cfg, gen, set())
+    clients = mixed_noniid(cs.N_CLIENTS, n_per_client=128, n_test=64)
+    _, tr, snap = cs.run_trainer(cfg, cs.trainer_runs()["main"], clients,
+                                 "main")
+    del tr
+    print(f"launches of the ranks' training: {cs.shard_phase(cfg, snap)}")
+
+
 PARTS = {
+    "shard": shard,
     "lm-train": lm_train,
     "ssm-flash": lambda cs, gen: cs.check_flash(cs.ssm_flash_cases(), gen),
     "ssm-two": ssm_two,

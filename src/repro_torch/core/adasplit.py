@@ -66,6 +66,26 @@ rows, never O(C); the bandit state and selection stay on it for the
 whole population.  The joint ablation and the per-client loop fall back
 to resident with a warning, as in the reference.
 
+Orthogonally again, ``shard_clients=True`` splits the stacked client
+axis C over the ranks of a ``torch.distributed`` group (the ``mesh``,
+``launch/mesh.make_cohort_mesh()`` by default), on the round and epoch
+rungs: each rank holds C/world clients' rows (params, Adam, masks,
+mask Adam and its slice of the (N,)-leaf bandit state), draws every
+client's init and batches and keeps its own, and runs its own slice of
+the client step.  A global iteration makes ONE all-gather
+(``sharding/exchange.py``) of the ranks' advantages, activations,
+labels, masks and mask Adam (and, under the joint ablation, client
+params, client Adam and images): every rank selects and runs the global
+step on the same full arrays, so the server stays equal on every rank,
+writes back only the rows it owns (``masks.scatter_clients_shard``) and
+updates its bandit slice.  The meters bill the whole population on
+every rank, and ``Meter.interconnect_bytes`` exactly the gathered bytes
+(the reference's formula).  Streamed and sharded, each rank's store
+holds its own towers and every client's masks, and a global round
+all-gathers the host spill instead (the port's cost, billed nowhere).
+A world of 1 is a no-op; a C that the world does not divide, or the
+eager rung, warns and runs unsharded, as in the reference.
+
 ``evaluate()`` and ``c3()`` (eq. 9) follow the rounds.  Every conv runs
 through the panel-GEMM kernel on the card (``batched_conv=False``: the
 library conv, the reference path); the server and mask Adam steps take
@@ -77,6 +97,7 @@ work to the CPU on its own.
 from __future__ import annotations
 
 import math
+import os
 import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -90,14 +111,18 @@ from repro_torch.core.accounting import (Meter, lenet_flops_per_example,
 from repro_torch.core.c3 import c3_score
 from repro_torch.core.client_store import make_store
 from repro_torch.core.losses import accuracy, l1_penalty, token_nll
-from repro_torch.core.orchestrator import (Orchestrator, ucb_new_round,
-                                           ucb_select, ucb_update_selected)
+from repro_torch.core.orchestrator import (Orchestrator, ucb_advantage,
+                                           ucb_new_round, ucb_select,
+                                           ucb_select_from_advantage,
+                                           ucb_update, ucb_update_selected)
 from repro_torch.data.synthetic import batch_iterator
 from repro_torch.kernels.client_conv import client_proj
 from repro_torch.kernels.masked_adam import fused_adam_update
 from repro_torch.kernels.ntxent import ntxent_loss
 from repro_torch.models import lenet
 from repro_torch.optim.adam import adam_init, adam_update
+from repro_torch.sharding.exchange import CohortExchange
+from repro_torch.sharding.rules import MeshAxes, cohort_pspecs
 from repro_torch.utils.tree import tree_grads, tree_requires_grad
 from repro_torch.weights import (device_of, from_numpy, to_host, to_numpy,
                                  tree_leaves, tree_map, tree_unflatten)
@@ -144,6 +169,9 @@ class AdaSplitHParams:
     store_dir: Optional[str] = None  # DiskStore directory (None = tmp)
     stream_chunk: int = 0           # client rows per streamed chunk
                                     # (0 = auto: max(32, S), at most C)
+    shard_clients: bool = False     # split the stacked client axis C over
+                                    # the mesh's data ranks (falls back
+                                    # to one rank when C % world != 0)
     seed: int = 0
 
 
@@ -182,7 +210,7 @@ def _set_row(tree, k: int, new):
 
 class AdaSplitTrainer:
     def __init__(self, cfg, hp: AdaSplitHParams, clients, *,
-                 device="cuda", jitter=None):
+                 device="cuda", jitter=None, mesh=None):
         self.cfg, self.hp, self.clients = cfg, hp, clients
         self.n = len(clients)
         self.device = device_of(device)
@@ -201,7 +229,13 @@ class AdaSplitTrainer:
                           "phase (global_batch=True); falling back to "
                           "the resident path")
             self._streamed = False
-        self._stream_chunk = min(self.n, hp.stream_chunk
+        # the rows of the stacked client axis this rank holds: all of
+        # them, unless the cohort is sharded over the mesh's ranks
+        self._shard, self._mesh, self._ax, self._xchg = False, None, None, None
+        self._lo, self._n_local = 0, self.n
+        if hp.shard_clients:
+            self._setup_cohort_sharding(mesh)
+        self._stream_chunk = min(self._n_local, hp.stream_chunk
                                  or max(32, self.orch.k))
         self._fwd_kw = dict(fused_epilogue=hp.fused_epilogue,
                             batched_conv=hp.batched_conv)
@@ -213,6 +247,9 @@ class AdaSplitTrainer:
             if hp.fused_mask_adam is False else fused_adam_update
         gen = torch.Generator().manual_seed(hp.seed)
         dev = lambda tree: tree_map(lambda t: t.to(self.device), tree)
+        # every client is drawn, in client order, and this rank keeps
+        # its own rows: the draws are the unsharded trainer's
+        own = self._own_rows if self._shard else (lambda tree: tree)
 
         self._acts_spatial = self._acts_shape()
         acts_dim = int(np.prod(self._acts_spatial))
@@ -224,16 +261,19 @@ class AdaSplitTrainer:
             self.client_params = self.proj_params = None
             self.masks = self.c_opt = self.m_opt = None
         else:
-            self.client_params = dev(_stack(
-                [lenet.init_client_params(cfg, gen) for _ in range(self.n)]))
-            self.proj_params = dev(_stack(
+            self.client_params = dev(own(_stack(
+                [lenet.init_client_params(cfg, gen) for _ in range(self.n)])))
+            self.proj_params = dev(own(_stack(
                 [_proj_init(gen, acts_dim, hp.proj_dim)
-                 for _ in range(self.n)]))
-            self.masks = self._init_masks(self.n, self.device)
+                 for _ in range(self.n)])))
+            self.masks = self._init_masks(self._n_local, self.device)
             # per-client Adam states carry a per-client step vector
             self.c_opt = self._client_opt(
                 {"c": self.client_params, "p": self.proj_params})
             self.m_opt = self._client_opt(self.masks)
+            if self._shard:
+                # this rank's slice of the (N,)-leaf bandit state
+                self.orch.state = self._own_rows(self.orch.state)
 
         self.meter = Meter()
         self._fl_c = lenet_flops_per_example(cfg, "client")
@@ -243,6 +283,109 @@ class AdaSplitTrainer:
         # (record, summed client loss, T), filled in by the next fetch
         self._pending: List[Tuple[dict, torch.Tensor, int]] = []
         self._rng = np.random.default_rng(hp.seed)
+
+    # ------------------------------------------------------------------
+    # cohort sharding: the stacked client axis split over the mesh's ranks
+    # ------------------------------------------------------------------
+    def _setup_cohort_sharding(self, mesh):
+        """Enable ``shard_clients``: each of the mesh's ``world`` ranks
+        holds C/world clients' rows (client and projection params, client
+        Adam, masks, mask Adam, and in the resident form the (N,)-leaf
+        bandit state) and runs its own slice of the client step; the
+        global step runs replicated over the all-gathered cohort.  As in
+        the reference, a world of 1 is a no-op, and a cohort that does
+        not divide by the world, or the eager rung, warns and runs
+        unsharded."""
+        if not (self.hp.round_scan and self.hp.global_batch):
+            warnings.warn("shard_clients requires the round/epoch scan "
+                          "drivers (round_scan=True, global_batch=True); "
+                          "falling back to the single-device path")
+            return
+        from repro_torch.launch.mesh import make_cohort_mesh
+        mesh = mesh if mesh is not None else make_cohort_mesh(
+            device=self.device)
+        ax = MeshAxes.from_mesh(mesh)
+        if ax.data_size <= 1:
+            return
+        if self.n % ax.data_size:
+            warnings.warn(
+                f"shard_clients: {self.n} clients not divisible by "
+                f"data mesh size {ax.data_size}; falling back to the "
+                "replicated single-device path")
+            return
+        self._mesh, self._ax, self._shard = mesh, ax, True
+        self._n_local = self.n // ax.data_size
+        self._lo = mesh.rank * self._n_local
+        self._xchg = CohortExchange(mesh)
+
+    def _own_rows(self, tree):
+        """This rank's rows of a (C, ...) tree: the leaves the cohort rules
+        put on the data axis are sliced, the others (the bandit's step
+        counter) kept."""
+        specs = cohort_pspecs(tree, self._ax, cohort_size=self.n)
+        lo, hi = self._lo, self._lo + self._n_local
+        return tree_map(lambda l, sp: l[lo:hi].clone() if sp else l,
+                        tree, specs)
+
+    def _all_rows(self, tree, label: str = "state"):
+        """The (C, ...) tree from every rank's rows of a (C/world, ...)
+        tree, scalars (the bandit's step counter) kept: one all-gather."""
+        rows = [l for l in tree_leaves(tree) if l.ndim]
+        full = iter(self._xchg.gather_rows(rows, label))
+        return tree_map(lambda l: next(full) if l.ndim else l, tree)
+
+    def _held(self, i: int) -> bool:
+        return self._lo <= i < self._lo + self._n_local
+
+    def _round_batches(self):
+        """One round's per-client batch lists of the clients this rank
+        holds, drawn from the one RNG stream in client order.  A client
+        held elsewhere still takes its draw (``batch_iterator`` draws one
+        permutation an epoch), so every rank's stream is the unsharded
+        trainer's."""
+        out = []
+        for i, cd in enumerate(self.clients):
+            if self._held(i):
+                out.append(list(self._epoch_batches(i)))
+            else:
+                self._rng.permutation(len(cd.x))
+        return out
+
+    def _loss_part(self, closs):
+        """This rank's part of the mean client loss over all C clients
+        (summed over the ranks at the next fetch)."""
+        return closs.sum() / self.n if self._shard else closs.mean()
+
+    @staticmethod
+    def _row_bytes(tree) -> int:
+        leaves = tree_leaves(tree)
+        return sum(l.numel() * l.element_size() for l in leaves) \
+            // int(leaves[0].shape[0])
+
+    def _iteration_interconnect_bytes(self) -> float:
+        """Bytes that cross the mesh in ONE sharded global iteration (the
+        reference's formula): each all-gathered array moves (world - 1)
+        x its full size.  Gathered: the (N,) advantages, the split
+        activations and labels of ALL clients (the candidates the
+        replicated global step selects from), the mask and mask-Adam
+        trees, and under the joint ablation the client params and Adam
+        state and the images.  The exchange packs exactly these into its
+        one all-gather an iteration.  A streamed sharded run gathers only
+        on the host (its spill) and bills 0, as the reference's."""
+        if not self._shard or self._streamed:
+            return 0.0
+        hp, n = self.hp, self.n
+        full = 4 * n                                         # advantages
+        full += 4 * n * hp.batch_size * int(np.prod(self._acts_spatial))
+        full += 4 * n * hp.batch_size                        # labels
+        full += n * self._row_bytes(self.masks)
+        full += n * self._row_bytes(self.m_opt)
+        if hp.server_grad_to_client:
+            full += n * self._row_bytes(
+                {"c": self.client_params, "p": self.proj_params})
+            full += n * self._row_bytes(self.c_opt)
+            full += 4 * n * hp.batch_size * 3 * self.cfg.image_size ** 2
+        return float((self._ax.data_size - 1) * full)
 
     def _init_masks(self, n: int, device):
         """(n, ...) masks of ones: per-unit, or per-scalar (server
@@ -273,13 +416,20 @@ class AdaSplitTrainer:
         return (hw, hw, self.cfg.conv_channels[s - 1])
 
     def _client_groups(self):
-        """The per-client state as the store's dict of groups: the
-        store's whole population (CPU tensors) when streamed, else the
-        resident trees."""
+        """The per-client state of all C clients as the store's dict of
+        groups: the store's whole population (CPU tensors) when
+        streamed, else the resident trees; sharded, every rank's rows
+        all-gathered (the masks of a streamed sharded run are whole on
+        every rank)."""
         if self._streamed:
-            return self.store.full()
-        return {"cp": {"c": self.client_params, "p": self.proj_params},
-                "co": self.c_opt, "m": self.masks, "mo": self.m_opt}
+            if not self._shard:
+                return self.store.full()
+            g = self._all_rows(self.store.gather(
+                np.arange(self._n_local), ("cp", "co")))
+            return {**g, **self.store.full(("m", "mo"))}
+        g = {"cp": {"c": self.client_params, "p": self.proj_params},
+             "co": self.c_opt, "m": self.masks, "mo": self.m_opt}
+        return self._all_rows(g) if self._shard else g
 
     def client_state(self):
         """Numpy copies of the stacked per-client state as the store's
@@ -291,11 +441,14 @@ class AdaSplitTrainer:
         """Numpy copies of the training state and the bandit state (the
         client state read from the store when streamed)."""
         g = self._client_groups()
+        ucb = self.orch.state
+        if self._shard and not self._streamed:
+            ucb = self._all_rows(ucb)
         return to_numpy({
             "client_params": g["cp"]["c"], "proj_params": g["cp"]["p"],
             "c_opt": g["co"], "masks": g["m"], "m_opt": g["mo"],
             "server_params": self.server_params, "s_opt": self.s_opt,
-            "ucb": self.orch.state})
+            "ucb": ucb})
 
     def set_state(self, state: dict):
         """Adopt a numpy state tree (same keys as :meth:`get_state`, e.g.
@@ -305,16 +458,24 @@ class AdaSplitTrainer:
                          "p": state["proj_params"]},
                   "co": state["c_opt"], "m": state["masks"],
                   "mo": state["m_opt"]}
-        if self._streamed:
+        if self._streamed and self._shard:
+            g = from_numpy(groups, "cpu")
+            own = self._own_rows({"cp": g.pop("cp"), "co": g.pop("co")})
+            self.store.scatter(np.arange(self._n_local), own)
+            self.store.scatter(np.arange(self.n), g)
+        elif self._streamed:
             self.store.scatter(np.arange(self.n), from_numpy(groups, "cpu"))
         else:
             g = from_numpy(groups, self.device)
+            if self._shard:
+                g = self._own_rows(g)
             self.client_params, self.proj_params = g["cp"]["c"], g["cp"]["p"]
             self.c_opt, self.masks, self.m_opt = g["co"], g["m"], g["mo"]
         st = from_numpy({k: state[k] for k in ("server_params", "s_opt",
                                                "ucb")}, self.device)
         self.server_params, self.s_opt = st["server_params"], st["s_opt"]
-        self.orch.state = st["ucb"]
+        self.orch.state = self._own_rows(st["ucb"]) \
+            if self._shard and not self._streamed else st["ucb"]
 
     # ------------------------------------------------------------------
     # client step: all C clients, one stacked forward
@@ -651,11 +812,60 @@ class AdaSplitTrainer:
         acts, closs = self._client_step(x, y)
         if not global_phase:
             return ucb, closs, None
+        if self._shard:
+            ucb, out = self._sharded_global(x, y, acts, jitter, ucb)
+            return ucb, closs, out
         idx = ucb_select(ucb, self.orch.k, jitter)
         ces, fracs = self._selected_step(idx, acts, x, y)
         ucb = ucb_update_selected(ucb, idx, ces, n=self.n,
                                   gamma=self.hp.gamma)
         return ucb, closs, (idx, ces, fracs)
+
+    def _sharded_global(self, x, y, acts, jitter, ucb):
+        """The global half of a sharded iteration: this rank's advantages,
+        activations, labels, masks and mask-Adam rows (under the joint
+        ablation also its client params, client Adam rows and images) go
+        out in ONE all-gather; every rank then selects, gathers and runs
+        the global step on the same full arrays (so the server stays
+        equal on every rank), writes back only the selected rows it owns
+        (``scatter_clients_shard``) and updates its slice of the bandit
+        state.  Returns (bandit slice, (idx, ces, fracs))."""
+        hp = self.hp
+        lo, nl = self._lo, self._n_local
+        send = {"adv": ucb_advantage(ucb), "acts": acts, "ys": y,
+                "m": self.masks, "mo": self.m_opt}
+        if hp.server_grad_to_client:
+            send.update(cp={"c": self.client_params, "p": self.proj_params},
+                        co=self.c_opt, xs=x)
+        full = self._xchg.gather_rows(send, "iteration")
+        idx = ucb_select_from_advantage(full["adv"], self.orch.k, jitter)
+        masks_sel = masks_mod.gather_clients(full["m"], idx)
+        mopt_sel = masks_mod.gather_clients(full["mo"], idx)
+        if hp.server_grad_to_client:
+            cp_sel, copt_sel, masks_sel, mopt_sel, ces, fracs = \
+                self.global_joint_step(
+                    masks_mod.gather_clients(full["cp"], idx),
+                    masks_mod.gather_clients(full["co"], idx), masks_sel,
+                    mopt_sel, full["xs"][idx], full["ys"][idx],
+                    full["acts"][idx])
+            cp_pp = masks_mod.scatter_clients_shard(
+                {"c": self.client_params, "p": self.proj_params}, idx,
+                cp_sel, offset=lo, size=nl)
+            self.client_params, self.proj_params = cp_pp["c"], cp_pp["p"]
+            self.c_opt = masks_mod.scatter_clients_shard(
+                self.c_opt, idx, copt_sel, offset=lo, size=nl)
+        else:
+            masks_sel, mopt_sel, ces, fracs = self.global_step(
+                masks_sel, mopt_sel, full["acts"][idx], full["ys"][idx])
+        self.masks = masks_mod.scatter_clients_shard(
+            self.masks, idx, masks_sel, offset=lo, size=nl)
+        self.m_opt = masks_mod.scatter_clients_shard(
+            self.m_opt, idx, mopt_sel, offset=lo, size=nl)
+        zeros = torch.zeros((self.n,), device=idx.device)
+        sel = zeros.index_fill(0, idx, 1.0)[lo:lo + nl]
+        dense = zeros.index_copy(0, idx, ces.to(torch.float32))[lo:lo + nl]
+        ucb = ucb_update(ucb, sel, dense, gamma=hp.gamma)
+        return ucb, (idx, ces, fracs)
 
     def _device_round(self, staged, ucb, global_phase: bool):
         """The T iterations of one staged round (images, labels and, in
@@ -666,7 +876,7 @@ class AdaSplitTrainer:
             ucb, cl, out = self._device_iteration(
                 staged[0][t], staged[1][t],
                 staged[2][t] if global_phase else None, ucb, global_phase)
-            closs = closs + cl.mean()
+            closs = closs + self._loss_part(cl)
             outs.append(out)
         return ucb, closs, outs
 
@@ -719,6 +929,23 @@ class AdaSplitTrainer:
             for t in dev:
                 t.record_stream(cur)
         return dev
+
+    def _sum_losses(self, closs=None):
+        """Sharded, the client losses of the pending records and
+        ``closs`` are this rank's parts: sum each over the ranks (one
+        all-gather) before the fetch reads them.  Returns ``closs``
+        summed (as it is unsharded)."""
+        if not self._shard:
+            return closs
+        parts = [p[1] for p in self._pending]
+        if closs is not None:
+            parts.append(closs)
+        if not parts:
+            return closs
+        summed = self._xchg.sum_over_ranks(parts, "client_loss")
+        self._pending = [(rec, tot, T) for (rec, _, T), tot
+                         in zip(self._pending, summed)]
+        return summed[-1] if closs is not None else None
 
     def _fetch(self, tensors):
         """The rungs' one device->host copy: ``tensors`` and the summed
@@ -780,8 +1007,10 @@ class AdaSplitTrainer:
             self.meter.ingest_round(n_selected=0, **bill)
             self.orch.state = ucb
             return closs, None
+        bill["interconnect_bytes"] = self._iteration_interconnect_bytes() * T
         idx, ces, fracs = outs
         on_device = torch.is_tensor(idx)
+        closs = self._sum_losses(closs)
         got = self._fetch([closs, ces, fracs]
                           + ([idx] if on_device else []))  # one sync
         closs_h, ces_h, fracs_h = got[:3]
@@ -857,9 +1086,11 @@ class AdaSplitTrainer:
                                                 **bill)
             self.orch.ingest_epoch(None, None, state=ucb, n_rounds=R)
             return [(cl, None) for cl in closs], summaries
+        bill["interconnect_bytes"] = self._iteration_interconnect_bytes() * T
         idx, ces, fracs = outs
         on_device = torch.is_tensor(idx)
-        got = self._fetch([torch.stack(closs), ces, fracs]
+        closs = self._sum_losses(torch.stack(closs))
+        got = self._fetch([closs, ces, fracs]
                           + ([idx] if on_device else []))  # the epoch sync
         closs_h, ces_h, fracs_h = got[:3]
         idx_h = got[3] if on_device else idx
@@ -879,36 +1110,52 @@ class AdaSplitTrainer:
         (C, ...) trees: every client tower first, then every projection
         head, drawn from ``gen`` in the resident init's order, so a
         streamed trainer starts from exactly the resident trainer's
-        state; masks are ones and the Adam states zeros."""
-        hp, cfg, n = self.hp, self.cfg, self.n
-        self.store = make_store(hp.store_backend, n, directory=hp.store_dir,
+        state; masks are ones and the Adam states zeros.
+
+        Sharded, the store holds this rank's towers, heads and client
+        Adam rows (local row ids; every client is still drawn, in order)
+        and the masks and mask Adam of all C clients, which the
+        replicated global pass updates alike on every rank.  A disk store
+        takes a directory per rank (``rank<r>`` under ``store_dir``)."""
+        hp, cfg, n, nl = self.hp, self.cfg, self.n, self._n_local
+        directory = hp.store_dir
+        if self._shard and directory:
+            directory = os.path.join(directory, f"rank{self._mesh.rank}")
+        self.store = make_store(hp.store_backend, n, directory=directory,
                                 pin=self.device.type == "cuda")
         meta = torch.device("meta")
         one = torch.Generator().manual_seed(0)     # shapes only
         cp = {"c": lenet.init_client_params(cfg, one),
               "p": _proj_init(one, acts_dim, hp.proj_dim)}
-        cp = tree_map(lambda l: torch.empty((n,) + tuple(l.shape),
+        cp = tree_map(lambda l: torch.empty((nl,) + tuple(l.shape),
                                             dtype=l.dtype, device=meta), cp)
         masks = self._init_masks(n, meta)
         groups = {"cp": cp, "co": self._client_opt(cp), "m": masks,
                   "mo": self._client_opt(masks)}
         for name, tree in groups.items():
             self.store.alloc(name, tree)
-        chunks = [np.arange(i0, min(n, i0 + self._stream_chunk))
-                  for i0 in range(0, n, self._stream_chunk)]
+
+        def chunks(m):
+            return [np.arange(i0, min(m, i0 + self._stream_chunk))
+                    for i0 in range(0, m, self._stream_chunk)]
         for part, draw in (
                 ("c", lambda: lenet.init_client_params(cfg, gen)),
                 ("p", lambda: _proj_init(gen, acts_dim, hp.proj_dim))):
-            for rows in chunks:
-                self.store.scatter(rows, {"cp": {
-                    part: _stack([draw() for _ in rows])}})
+            for rows in chunks(n):
+                drawn = [draw() for _ in rows]
+                keep = [j for j, i in enumerate(rows) if self._held(i)]
+                if keep:
+                    self.store.scatter(rows[keep] - self._lo, {"cp": {
+                        part: _stack([drawn[j] for j in keep])}})
 
         def filled(tree, value, m):
             return tree_map(lambda l: torch.full(
                 (m,) + tuple(l.shape[1:]), value, dtype=l.dtype), tree)
-        for rows in chunks:
-            self.store.scatter(rows, {"co": filled(groups["co"], 0, len(rows)),
-                                      "m": filled(masks, 1, len(rows)),
+        for rows in chunks(nl):
+            self.store.scatter(rows, {"co": filled(groups["co"], 0,
+                                                   len(rows))})
+        for rows in chunks(n):
+            self.store.scatter(rows, {"m": filled(masks, 1, len(rows)),
                                       "mo": filled(groups["mo"], 0,
                                                    len(rows))})
 
@@ -922,7 +1169,8 @@ class AdaSplitTrainer:
         the same bytes, so the bill does not depend on the backend."""
         hp = self.hp
         act = 4 * int(np.prod(self._acts_spatial))
-        b = 2.0 * self.store.nbytes(("cp", "co"))
+        # all C clients' rows (a sharded rank's store holds its own)
+        b = 2.0 * (self.store.nbytes(("cp", "co")) // self._n_local * self.n)
         b += float(T * self.n * hp.batch_size * act)
         if global_phase:
             row = self.store.row_nbytes(("m", "mo"))
@@ -946,8 +1194,9 @@ class AdaSplitTrainer:
         activations and rows come down in ONE host sync, the activations
         into a host buffer for pass B.  Returns (activations (T, C, B,
         ...) and labels (T, C, B) on the host, per-client losses (T, C)
-        on the device)."""
-        n, chunk = self.n, self._stream_chunk
+        on the device); sharded, those of this rank's C/world clients
+        (``iters`` holds their batch lists, rows are local ids)."""
+        n, chunk = self._n_local, self._stream_chunk
         ring_rung = self.hp.round_scan
         side = (torch.cuda.Stream(self.device)
                 if ring_rung and self.device.type == "cuda" else None)
@@ -1018,7 +1267,10 @@ class AdaSplitTrainer:
         per chunk: its activation spill and row scatter) and 2T in pass B
         (per iteration the selection read and the mask rows' scatter);
         the round's one fetch (the epoch's, on the epoch rung) is the
-        caller's.  Nothing else waits for the device.
+        caller's.  Nothing else waits for the device.  Sharded, pass A
+        runs over this rank's C/world clients and a global round adds
+        one all-gather of the host spill (pass B is then the same on
+        every rank: the bandit state and the masks are whole on each).
 
         Returns (bandit state, summed mean client loss on the device,
         host selections (T, k) and device (T, k) CE losses and nnz
@@ -1026,9 +1278,17 @@ class AdaSplitTrainer:
         acts_h, ys_h, losses = self._client_pass(iters, T)
         closs = torch.zeros((), device=self.device)
         for t in range(T):
-            closs = closs + losses[t].mean()
+            closs = closs + self._loss_part(losses[t])
         if not global_phase:
             return ucb, closs, None
+        if self._shard:
+            # the exchange of the spill: every rank's (T, C/world, ...)
+            # activations and labels -> (T, C, ...) on every rank (one
+            # all-gather a global round; the port's cost, not the
+            # protocol's, so no interconnect bill)
+            full = self._xchg.gather_rows(
+                [acts_h.transpose(0, 1), ys_h.transpose(0, 1)], "stream_spill")
+            acts_h, ys_h = (f.transpose(0, 1) for f in full)
         pin = self.device.type == "cuda"
 
         def rows_of(h, idx):
@@ -1123,19 +1383,21 @@ class AdaSplitTrainer:
         if batched and hp.epoch_scan:
             return self._train_epoch_scan(eval_every)
         local_rounds = int(round(hp.kappa * hp.rounds))
+        # batch_iterator drops the remainder, so T follows from the sizes
+        T = min(len(c.x) // hp.batch_size for c in self.clients)
         run_round = (self._run_round_streamed if self._streamed
                      else self._run_round_scan if batched
                      else self._run_round_eager)
         for r in range(hp.rounds):
             global_phase = r >= local_rounds
             self.orch.new_round()
-            iters = [list(self._epoch_batches(i)) for i in range(self.n)]
-            T = min(len(it) for it in iters)
+            iters = self._round_batches()
             closs, ces = run_round(iters, T, global_phase)
             self._record(r, global_phase, T, closs, ces,
                          self.meter.summary(),
                          (r + 1) % eval_every == 0 or r == hp.rounds - 1)
         if self._pending:
+            self._sum_losses()
             self._fetch([])
         return self.history
 
@@ -1155,7 +1417,7 @@ class AdaSplitTrainer:
         def make_round():
             """One round's batches, drawn from the same per-client RNG
             stream in the same order as the other rungs."""
-            return [list(self._epoch_batches(i)) for i in range(self.n)]
+            return self._round_batches()
 
         r = 0
         while r < hp.rounds:
@@ -1183,6 +1445,7 @@ class AdaSplitTrainer:
                              is_eval(rr))
             r = end + 1
         if self._pending:
+            self._sum_losses()
             self._fetch([])
         return self.history
 
@@ -1201,43 +1464,55 @@ class AdaSplitTrainer:
         return logits
 
     def client_accuracies(self) -> np.ndarray:
-        """(C,) per-client test accuracy in [0, 1]."""
-        if self._streamed:
-            return self._client_accuracies_streamed()
-        shapes = {cd.test_x.shape for cd in self.clients}
+        """(C,) per-client test accuracy in [0, 1]; sharded, each rank
+        evaluates its own clients and the (C,) accuracies are
+        all-gathered."""
+        accs = self._client_accuracies_streamed() if self._streamed \
+            else self._held_accuracies()
+        if self._shard:
+            accs = self._xchg.gather_rows(accs, "evaluate")
+        return accs.cpu().numpy()
+
+    def _held_accuracies(self) -> torch.Tensor:
+        """Accuracies of the clients whose rows this rank holds (all C
+        unsharded), on the device."""
+        held = self.clients[self._lo:self._lo + self._n_local]
+        shapes = {cd.test_x.shape for cd in held}
         if len(shapes) == 1:
             xs = torch.from_numpy(np.stack(
-                [cd.test_x for cd in self.clients])).to(self.device)
+                [cd.test_x for cd in held])).to(self.device)
             ys = torch.from_numpy(np.stack(
-                [cd.test_y for cd in self.clients])).to(self.device)
+                [cd.test_y for cd in held])).to(self.device)
             return accuracy(self._eval_logits(
-                self.client_params, self.masks, xs), ys).cpu().numpy()
+                self.client_params, self.masks, xs), ys)
         accs = []
-        for i, cd in enumerate(self.clients):
+        for i, cd in enumerate(held):
             row = torch.tensor([i], device=self.device)
             xs = torch.from_numpy(cd.test_x[None]).to(self.device)
             ys = torch.from_numpy(cd.test_y[None]).to(self.device)
             accs.append(float(accuracy(self._eval_logits(
                 masks_mod.gather_clients(self.client_params, row),
                 masks_mod.gather_clients(self.masks, row), xs), ys)[0]))
-        return np.asarray(accs, np.float32)
+        return torch.tensor(accs, dtype=torch.float32, device=self.device)
 
     def _client_accuracies_streamed(self) -> np.ndarray:
         """:meth:`client_accuracies` over the client store: its towers and
         masks go up ``stream_chunk`` rows at a time (one row at a time
-        where the test sets differ in size)."""
+        where the test sets differ in size); sharded, this rank's clients
+        (their towers at local row ids, their masks at global ones)."""
         same = len({cd.test_x.shape for cd in self.clients}) == 1
         step = self._stream_chunk if same else 1
         accs = []
-        for i0 in range(0, self.n, step):
-            rows = np.arange(i0, min(self.n, i0 + step))
-            g = self._put(self.store.gather(rows, ("cp", "m")))
+        for i0 in range(0, self._n_local, step):
+            rows = np.arange(i0, min(self._n_local, i0 + step))
+            g = self._put({**self.store.gather(rows, ("cp",)),
+                           **self.store.gather(rows + self._lo, ("m",))})
             xs, ys = (torch.from_numpy(np.stack(
-                [getattr(self.clients[i], f) for i in rows])).to(self.device)
-                for f in ("test_x", "test_y"))
+                [getattr(self.clients[self._lo + i], f) for i in rows])
+                ).to(self.device) for f in ("test_x", "test_y"))
             accs.append(accuracy(self._eval_logits(g["cp"]["c"], g["m"], xs),
                                  ys))
-        return torch.cat(accs).cpu().numpy()
+        return torch.cat(accs)
 
     def evaluate(self) -> float:
         return 100.0 * float(np.mean(self.client_accuracies()))

@@ -168,6 +168,26 @@ def scatter_clients(tree, idx, new):
                     tree, new)
 
 
+def scatter_clients_shard(tree, idx, new, *, offset, size):
+    """Shard-local :func:`scatter_clients` for cohort-sharded trees.
+
+    A rank holds a (size, ...) slice of each stacked (C, ...) leaf, the
+    global client ids [offset, offset + size).  ``idx`` (S,) are GLOBAL
+    ids and ``new`` the replicated (S, ...) updated rows; each rank
+    writes only the rows it owns (the others go to a sink row past the
+    slice, which is dropped), so the union over ranks is exactly the
+    global ``scatter_clients``.  No host read: the ownership test runs on
+    the device."""
+    local = idx - offset
+    safe = torch.where((local >= 0) & (local < size), local,
+                       torch.full_like(local, size))
+
+    def put(l, n):
+        sink = torch.cat([l, l[:1]])
+        return sink.index_copy(0, safe, n.to(l.dtype))[:size]
+    return tree_map(put, tree, new)
+
+
 def host_gather_clients(tree, idx, *, pin: bool = False):
     """Host-side :func:`gather_clients`: leaves are CPU tensors or numpy
     arrays (``np.memmap`` disk views included), ``idx`` host ids; the

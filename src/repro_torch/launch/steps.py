@@ -25,7 +25,8 @@ The train step is the LM variant of the AdaSplit protocol:
 Attention in the train step is the reference's training attention
 (``models.attention.training_attention``, asked for with
 ``training=True``): the flash kernel has no backward.  The reference's
-mesh, sharding specs and dry-run builders are not ported.
+mesh placement of the LM state and the dry-run builders are not ported
+(the sharding rules are, in ``repro_torch.sharding``).
 """
 from __future__ import annotations
 
@@ -54,11 +55,12 @@ from repro_torch.weights import (tree_leaves, tree_map, tree_unflatten,
 
 @dataclass(frozen=True)
 class LaunchPolicy:
-    """The reference's policy fields that change values.  Its sharding
-    fields (``fsdp``, ``seq_shard``, ``attn_*_shard``/``_pin``,
-    ``moe_batch_pin``) wait for the sharded slice (ROADMAP queue 1
-    item 5); ``microbatch`` is the number of grad-accumulation chunks
-    per step."""
+    """The reference's policy fields that something in the port reads.
+    Its sharding fields (``fsdp``, ``seq_shard``, ``attn_*_shard``/
+    ``_pin``, ``moe_batch_pin``) wait for their reader, the LM state's
+    placement over a (data, model) mesh (ROADMAP queue 1 item 6);
+    ``microbatch`` is the number of grad-accumulation chunks per
+    step."""
     microbatch: int = 1
     remat: bool = True
     param_dtype: str = "bfloat16"  # large-leaf param dtype (moments f32)
@@ -68,6 +70,28 @@ class LaunchPolicy:
     proj_dim: int = 64
     ce_chunk: int = 512
     n_seq_classes: int = 16       # NT-Xent sequence-class label space
+
+
+def default_policy(cfg, shape: Optional[InputShape] = None,
+                   data_size: int = 16) -> LaunchPolicy:
+    """The reference's baseline policy, sized for a v5e's memory:
+    ``microbatch`` doubles until the per-rank remat scan carry (n_layers x
+    b_local x S x D x 2 B) is under ~3 GB, where a model above 10 B
+    params has that carry divided by the model axis (16), which its
+    sequence sharding splits.  That model also gets ``fsdp`` and
+    ``seq_shard`` in the reference; the port reads neither yet."""
+    big = cfg.param_count() > 10e9
+    mb = 1
+    if shape is not None and shape.kind == "train" and not cfg.is_conv:
+        b_local = max(shape.global_batch // data_size, 1)
+        carry = (cfg.n_layers + cfg.n_encoder_layers) * b_local \
+            * shape.seq_len * cfg.d_model * 2
+        if big:
+            carry /= 16
+        budget = 3e9
+        while mb < b_local and carry / mb > budget:
+            mb *= 2
+    return LaunchPolicy(microbatch=mb)
 
 
 def _cast_leaf(p, dt, shape=None):

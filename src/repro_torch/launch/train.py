@@ -16,10 +16,17 @@ Usage (one card; ``--device cpu`` runs on the CPU):
       --reduced --steps 20 --batch 16 --seq 128
 
 Conv archs run the paper-scale vision trainer (``run_vision``) on the
-epoch rung; its cohort-sharded form (``--shard``, the default as in the
-reference) is not ported yet, so pass ``--no-shard``:
-  PYTHONPATH=src python -m repro_torch.launch.train --arch lenet-cifar \
-      --clients 16 --steps 4 --no-shard
+epoch rung, cohort-sharded over the job's ranks by default (``--shard``,
+as in the reference: ``shard_clients=True``, C/world clients a rank;
+``--no-shard`` keeps the whole cohort on each process).  Start the ranks
+with ``torchrun`` (or the ``REPRO_COORDINATOR`` / ``REPRO_NUM_PROCESSES``
+/ ``REPRO_PROCESS_ID`` variables); alone, the run is a world of 1 and
+unsharded.  ``--backend`` defaults to NCCL where each rank has a card of
+its own and gloo where ranks share one or run on the CPU:
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch lenet-cifar --clients 16 --steps 4 --device cpu
+An LM arch trains on one process: its sharded form (the state over a
+(data, model) mesh) is still to be ported.
 """
 from __future__ import annotations
 
@@ -254,32 +261,49 @@ class LMAdaSplitTrainer:
 
 def run_vision(args):
     """Paper-scale vision AdaSplit on the epoch rung (``AdaSplitTrainer``
-    with ``epoch_scan=True``) on one device.  The reference's default
-    shards the client axis over the host's devices; that form
-    (``--shard``) is not ported yet."""
-    if args.shard:
-        raise NotImplementedError(
-            "cohort-sharded vision training (--shard) is not ported yet: it "
-            "comes with ROADMAP queue 1 item 5 (sharding); pass --no-shard")
+    with ``epoch_scan=True``), the stacked client axis sharded over the
+    job's ranks (``shard_clients=True``, C/world clients a rank) unless
+    ``--no-shard``; a world of 1 runs unsharded, as the reference's
+    one-device mesh does.  Rank 0 prints."""
     from repro_torch.core.adasplit import AdaSplitHParams, AdaSplitTrainer
     from repro_torch.data.synthetic import mixed_noniid
+    from repro_torch.launch.distributed import describe
+    from repro_torch.launch.mesh import make_cohort_mesh
 
     cfg = get_config(args.arch)
     clients = mixed_noniid(n_clients=args.clients,
                            n_per_client=args.batch * 4, n_test=64, seed=0)
     hp = AdaSplitHParams(rounds=args.steps, kappa=args.kappa,
                          eta=args.eta, batch_size=args.batch,
-                         epoch_scan=True)
-    tr = AdaSplitTrainer(cfg, hp, clients, device=args.device)
+                         epoch_scan=True, shard_clients=args.shard)
+    mesh = make_cohort_mesh(device=args.device) if args.shard else None
+    tr = AdaSplitTrainer(cfg, hp, clients,
+                         device=mesh.device if mesh else args.device,
+                         mesh=mesh)
     t0 = time.time()
     hist = tr.train(eval_every=max(args.steps // 2, 1))
+    job = describe()
+    if job["process_index"]:
+        return
     for h in hist[:: max(1, len(hist) // 10)]:
         print(json.dumps(h))
     print(f"done {args.steps} rounds in {time.time()-t0:.1f}s on "
-          f"{tr.device} (sharded=False); "
+          f"{job['process_count']} rank(s) of {tr.device} "
+          f"(sharded={tr._shard}, world={job['process_count']}, "
+          f"backend={job['backend']}); "
           f"bandwidth={tr.meter.bandwidth_gb:.4f} GB "
           f"interconnect={tr.meter.interconnect_gb:.4f} GB "
           f"client={tr.meter.client_tflops:.3f} TFLOPs")
+
+
+def _job_world() -> int:
+    """Ranks the launcher started (``REPRO_NUM_PROCESSES``, else
+    torchrun's ``WORLD_SIZE``; 1 alone)."""
+    import os
+    for name in ("REPRO_NUM_PROCESSES", "WORLD_SIZE"):
+        if os.environ.get(name):
+            return int(os.environ[name])
+    return 1
 
 
 def main(argv=None):
@@ -299,12 +323,29 @@ def main(argv=None):
                     help="vision: keep the cohort on one device")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="the ranks' backend (default: nccl where each "
+                    "rank has a card of its own, else gloo)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    world = _job_world()
     if cfg.is_conv:
-        run_vision(args)
+        from repro_torch.launch import distributed
+        if args.shard and world > 1:
+            distributed.initialize(backend=args.backend or
+                                   distributed.choose_backend(args.device,
+                                                              world))
+        try:
+            run_vision(args)
+        finally:
+            distributed.shutdown()
         return
+    if world > 1:
+        raise NotImplementedError(
+            f"the LM trainer runs on one process ({world} were started): "
+            "its sharded form, the train state over a (data, model) mesh, "
+            "comes with ROADMAP queue 1 item 6 (the launch tooling)")
     if args.reduced:
         cfg = cfg.reduced()
     # one device: the reference's make_host_mesh() gives a data axis of 1

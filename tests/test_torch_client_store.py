@@ -2,7 +2,8 @@
 its client stores (``repro_torch.core.client_store``).
 
 1. Each assertion of ``tests/test_client_store.py`` on the port (its two
-   sharded tests wait for the cohort-sharding slice): the streamed
+   sharded tests are ``tests/test_torch_cohort_shard.py``'s streamed
+   cases, on 2 gloo ranks): the streamed
    trainer against the port's resident trainer on the eager, round and
    epoch rungs, on the disk store, disk against host bit-identical, the
    per-scalar, act_l1, even, ragged and auto chunk variants, one-row

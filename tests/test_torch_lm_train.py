@@ -500,9 +500,14 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys):
     assert "done 2 steps" in out and (tmp_path / "ckpt.npz").exists()
 
 
-def test_vision_shard_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ttrain.main(["--arch", "lenet-cifar", "--device", "cpu"])
+def test_vision_shard_is_not_ported(capsys):
+    """``--shard`` (the default) is ported now: in a world of one process
+    it runs the vision trainer unsharded, as the reference's one-device
+    mesh does (the 2-rank form: ``tests/test_torch_examples.py``)."""
+    ttrain.main(["--arch", "lenet-cifar", "--device", "cpu", "--clients",
+                 "2", "--steps", "1", "--batch", "4"])
+    out = capsys.readouterr().out
+    assert "done 1 rounds" in out and "sharded=False, world=1" in out
 
 
 # ---------------------------------------------------------------------------
